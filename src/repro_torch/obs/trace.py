@@ -1,0 +1,446 @@
+"""Lightweight span tracing for the d-HNSW stack.
+
+A single process-global :data:`TRACER` records spans into a bounded,
+thread-safe ring buffer.  When disabled (the default) every entry point is
+a no-op that allocates nothing: :meth:`Tracer.span` returns a shared null
+context manager and :meth:`Tracer.add` / :meth:`Tracer.event` return
+immediately, so traced code paths stay bit-identical and ledger-identical
+to untraced ones.
+
+Span model
+----------
+Each span is a plain dict::
+
+    {"name": "compute.fetch", "tier": "compute", "t0": <perf_counter s>,
+     "dur": <s>, "id": 17, "parent": 12, "trace": <64-bit id>,
+     "tid": 0, "attrs": {"bytes": 4096.0, ...}}
+
+Parentage is tracked per-thread: entering a ``with TRACER.span(...)``
+block pushes the span onto that thread's stack, so nested calls (serve
+window -> dispatch -> compute round -> pool verb) form a tree without any
+explicit plumbing.  Externally-timed spans (queue waits, harvested
+server-side spans) are attached with :meth:`Tracer.add` /
+:meth:`Tracer.add_span`.
+
+Tiers are free-form strings; the conventional taxonomy is documented in
+``docs/observability.md`` (serve / compute / pool / net / server / kernel
+/ bench).
+
+Tail-based sampling
+-------------------
+``configure(tail=True)`` switches the ring from "last N spans" to "the
+interesting traces": spans still record always-on and cheap, but a
+non-root span is *staged* per-thread instead of entering the ring, and
+only when its root closes is the whole trace either promoted (root +
+staged children append together) or discarded.  A root is promoted when
+it is explicitly marked (``keep=True`` attr), touched an error or
+failover (``error``/``failover`` attrs), or its latency — ``model_s``
+attr when present (deterministic modeled seconds), wall ``dur``
+otherwise — reaches an adaptive quantile threshold over a rolling
+window of recent roots.  The promoted root carries ``why_kept`` in its
+attrs (``marked`` / ``error`` / ``latency`` / ``warmup``); ``kept`` and
+``discarded`` count root decisions and :meth:`Tracer.health` exposes
+them next to ring occupancy, so the ring holds the p99 outliers instead
+of the last N requests and silent span loss stays visible.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Iterable, List, Optional
+
+
+class _NullSpan:
+    """Shared no-op context manager returned when tracing is disabled."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        """Enter without side effects and return self."""
+        return self
+
+    def __exit__(self, *exc: object) -> bool:
+        """Exit without recording; never swallows exceptions."""
+        return False
+
+    def set(self, **attrs: Any) -> "_NullSpan":
+        """Discard attribute updates."""
+        return self
+
+    @property
+    def span_id(self) -> int:
+        """Null spans have id 0 (meaning "no span")."""
+        return 0
+
+
+_NULL = _NullSpan()
+
+
+class _Span:
+    """Live span context manager; records itself into the tracer on exit."""
+
+    __slots__ = ("_tracer", "name", "tier", "attrs", "t0", "span_id", "parent_id")
+
+    def __init__(self, tracer: "Tracer", name: str, tier: str, attrs: Dict[str, Any]):
+        """Bind the span to *tracer*; nothing is recorded until ``__exit__``."""
+        self._tracer = tracer
+        self.name = name
+        self.tier = tier
+        self.attrs = attrs
+        self.t0 = 0.0
+        self.span_id = 0
+        self.parent_id = 0
+
+    def __enter__(self) -> "_Span":
+        """Allocate an id, push onto the thread's parent stack, start the clock."""
+        tr = self._tracer
+        self.parent_id = tr._current_id()
+        self.span_id = next(tr._ids)
+        tr._tls.span_id = self.span_id
+        self.t0 = time.perf_counter()
+        return self
+
+    def set(self, **attrs: Any) -> "_Span":
+        """Merge extra attributes into the span before it closes."""
+        self.attrs.update(attrs)
+        return self
+
+    def __exit__(self, *exc: object) -> bool:
+        """Stop the clock, pop the parent stack, and record the span."""
+        dur = time.perf_counter() - self.t0
+        tr = self._tracer
+        tr._tls.span_id = self.parent_id
+        tr._record(self.name, self.tier, self.t0, dur, self.span_id, self.parent_id, self.attrs)
+        return False
+
+
+class Tracer:
+    """Thread-safe bounded span recorder with a per-thread parent stack."""
+
+    def __init__(self, capacity: int = 65536):
+        """Create a disabled tracer with room for *capacity* spans."""
+        self.enabled = False
+        self.capacity = int(capacity)
+        self.trace_id = 0
+        self.dropped = 0
+        self.tail = False
+        self.tail_quantile = 0.95
+        self.tail_window = 256
+        self.kept = 0
+        self.discarded = 0
+        self._root_durs: deque = deque(maxlen=self.tail_window)
+        self._spans: deque = deque(maxlen=self.capacity)
+        self._ids = itertools.count(1)
+        self._tls = threading.local()
+        self._tids: Dict[int, int] = {}
+        self._lock = threading.Lock()
+        self._phase: Optional[str] = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def configure(
+        self,
+        enabled: bool = True,
+        capacity: Optional[int] = None,
+        trace_id: Optional[int] = None,
+        tail: Optional[bool] = None,
+        tail_quantile: Optional[float] = None,
+        tail_window: Optional[int] = None,
+    ) -> "Tracer":
+        """Enable (or reconfigure) tracing and reset the buffer.
+
+        *trace_id* defaults to a fresh 63-bit id derived from the wall
+        clock; pass an explicit value for reproducible tests.  *tail*
+        switches on tail-based sampling (see module docstring):
+        *tail_quantile* is the adaptive latency threshold over a rolling
+        window of *tail_window* recent root latencies.
+        """
+        with self._lock:
+            if capacity is not None:
+                self.capacity = int(capacity)
+            if tail is not None:
+                self.tail = bool(tail)
+            if tail_quantile is not None:
+                self.tail_quantile = float(tail_quantile)
+            if tail_window is not None:
+                self.tail_window = int(tail_window)
+            self._spans = deque(maxlen=self.capacity)
+            self._ids = itertools.count(1)
+            self._tids = {}
+            self.dropped = 0
+            self.kept = 0
+            self.discarded = 0
+            self._root_durs = deque(maxlen=self.tail_window)
+            self._tls = threading.local()
+            self._phase = None
+            if trace_id is not None:
+                self.trace_id = int(trace_id)
+            elif not self.trace_id:
+                self.trace_id = (time.time_ns() & 0x7FFFFFFFFFFFFFFF) | 1
+            self.enabled = bool(enabled)
+        return self
+
+    def disable(self) -> None:
+        """Turn tracing off and drop all buffered spans."""
+        with self._lock:
+            self.enabled = False
+            self.tail = False
+            self._spans.clear()
+            self._root_durs.clear()
+            self.kept = 0
+            self.discarded = 0
+            self._tls = threading.local()
+            self._phase = None
+            self.trace_id = 0
+
+    def reset(self) -> None:
+        """Drop buffered spans but keep the enabled state and trace id."""
+        with self._lock:
+            self._spans.clear()
+            self._root_durs.clear()
+            self.dropped = 0
+            self.kept = 0
+            self.discarded = 0
+            self._tls = threading.local()
+
+    def set_phase(self, phase: Optional[str]) -> None:
+        """Tag subsequently recorded spans with ``attrs["phase"] = phase``."""
+        self._phase = phase
+
+    # -- recording ---------------------------------------------------------
+
+    def span(self, name: str, tier: str = "-", **attrs: Any) -> Any:
+        """Open a timed span context; returns a shared no-op when disabled."""
+        if not self.enabled:
+            return _NULL
+        return _Span(self, name, tier, attrs)
+
+    def event(self, name: str, tier: str = "-", **attrs: Any) -> None:
+        """Record a zero-duration event parented to the current span."""
+        if not self.enabled:
+            return
+        t0 = time.perf_counter()
+        self._record(name, tier, t0, 0.0, next(self._ids), self._current_id(), attrs)
+
+    def add(self, name: str, tier: str, t0: float, dur: float, **attrs: Any) -> None:
+        """Record an externally-timed span parented to the current span."""
+        if not self.enabled:
+            return
+        self._record(name, tier, t0, dur, next(self._ids), self._current_id(), attrs)
+
+    def add_span(
+        self,
+        name: str,
+        tier: str,
+        t0: float,
+        dur: float,
+        *,
+        parent_id: int = 0,
+        attrs: Optional[Dict[str, Any]] = None,
+    ) -> int:
+        """Record a span with an explicit parent (e.g. harvested server spans)."""
+        if not self.enabled:
+            return 0
+        sid = next(self._ids)
+        # explicit-parent spans (harvested from a server, stitched after
+        # the fact) bypass tail staging: their root may have closed long
+        # ago on another node, so they enter the ring directly
+        self._record(name, tier, t0, dur, sid, parent_id, dict(attrs or {}),
+                     stack=False)
+        return sid
+
+    def _current_id(self) -> int:
+        """Return the innermost open span id on this thread (0 if none)."""
+        return getattr(self._tls, "span_id", 0)
+
+    def current(self) -> tuple:
+        """Return ``(trace_id, current_span_id)`` for wire propagation."""
+        return (self.trace_id, self._current_id())
+
+    def _tid(self) -> int:
+        """Map the OS thread ident to a small stable integer for exporters."""
+        ident = threading.get_ident()
+        tid = self._tids.get(ident)
+        if tid is None:
+            with self._lock:
+                tid = self._tids.setdefault(ident, len(self._tids))
+        return tid
+
+    def _record(
+        self,
+        name: str,
+        tier: str,
+        t0: float,
+        dur: float,
+        span_id: int,
+        parent_id: int,
+        attrs: Dict[str, Any],
+        stack: bool = True,
+    ) -> None:
+        """Route one finished span: straight into the ring, or — under
+        tail sampling, for stack-parented spans — through per-thread
+        staging until its root trace is promoted or discarded."""
+        if self._phase is not None and "phase" not in attrs:
+            attrs["phase"] = self._phase
+        rec = {
+            "name": name,
+            "tier": tier,
+            "t0": t0,
+            "dur": dur,
+            "id": span_id,
+            "parent": parent_id,
+            "trace": self.trace_id,
+            "tid": self._tid(),
+            "attrs": attrs,
+        }
+        if not self.tail or not stack:
+            self._append(rec)
+            return
+        if parent_id != 0:
+            stage = getattr(self._tls, "stage", None)
+            if stage is None:
+                stage = self._tls.stage = []
+            stage.append(rec)
+            return
+        # a root closed: decide the whole trace at once
+        why = self._tail_decide(dur, attrs)
+        staged = getattr(self._tls, "stage", None) or []
+        self._tls.stage = []
+        if why is None:
+            self.discarded += 1
+            return
+        self.kept += 1
+        attrs["why_kept"] = why
+        for s in staged:
+            self._append(s)
+        self._append(rec)
+
+    def _append(self, rec: Dict[str, Any]) -> None:
+        """Append one span dict to the ring, counting overflow drops."""
+        if len(self._spans) == self.capacity:
+            self.dropped += 1
+        self._spans.append(rec)
+
+    def _tail_decide(self, dur: float, attrs: Dict[str, Any]) -> Optional[str]:
+        """Keep/drop verdict for one closed root trace.
+
+        Effective latency is ``attrs["model_s"]`` when present (modeled
+        seconds — deterministic under simulated transports and WR
+        injection) and the wall ``dur`` otherwise.  Returns the
+        ``why_kept`` reason or None to discard.
+        """
+        eff = float(attrs.get("model_s", dur))
+        why = None
+        if attrs.get("keep"):
+            why = "marked"
+        elif attrs.get("error") or attrs.get("failover"):
+            why = "error"
+        else:
+            durs = sorted(self._root_durs)
+            if len(durs) < 8:
+                why = "warmup"     # no stable threshold yet: keep
+            else:
+                k = min(len(durs) - 1,
+                        int(self.tail_quantile * len(durs)))
+                if eff >= durs[k] and eff > 0.0:
+                    why = "latency"
+        self._root_durs.append(eff)
+        return why
+
+    def health(self) -> Dict[str, Any]:
+        """Tracer health gauges: ring occupancy/drops + tail counters."""
+        durs = sorted(self._root_durs)
+        thr = 0.0
+        if len(durs) >= 8:
+            thr = durs[min(len(durs) - 1,
+                           int(self.tail_quantile * len(durs)))]
+        return {"enabled": int(self.enabled), "tail": int(self.tail),
+                "capacity": self.capacity, "occupancy": len(self._spans),
+                "dropped": self.dropped, "kept": self.kept,
+                "discarded": self.discarded, "threshold_s": thr}
+
+    # -- inspection / export ----------------------------------------------
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """Return a stable copy of the buffered spans (oldest first)."""
+        with self._lock:
+            return list(self._spans)
+
+    def find(self, span_id: int) -> Optional[Dict[str, Any]]:
+        """Return the most recent buffered span with *span_id*, if any."""
+        if not span_id:
+            return None
+        with self._lock:
+            for s in reversed(self._spans):
+                if s["id"] == span_id:
+                    return s
+        return None
+
+    def save(self, path: str) -> int:
+        """Write the buffer as Chrome-trace JSON to *path*; returns span count."""
+        spans = self.snapshot()
+        with open(path, "w") as f:
+            json.dump(chrome_trace(spans), f)
+        return len(spans)
+
+
+#: Process-global tracer used by every instrumented tier.
+TRACER = Tracer()
+
+
+def chrome_trace(spans: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
+    """Convert raw spans to the Chrome trace-event ("Perfetto") format.
+
+    Each span becomes a complete event (``ph="X"``) with microsecond
+    ``ts``/``dur``; the raw span/parent ids and attrs ride along in
+    ``args`` so :mod:`repro.obs.report` can rebuild the tree losslessly.
+    """
+    events = []
+    for s in spans:
+        args = {k: v for k, v in s["attrs"].items()}
+        args["id"] = s["id"]
+        args["parent"] = s["parent"]
+        args["trace"] = s["trace"]
+        events.append(
+            {
+                "name": s["name"],
+                "cat": s["tier"],
+                "ph": "X",
+                "ts": s["t0"] * 1e6,
+                "dur": max(s["dur"], 0.0) * 1e6,
+                "pid": 0,
+                "tid": s.get("tid", 0),
+                "args": args,
+            }
+        )
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def load_trace(path: str) -> List[Dict[str, Any]]:
+    """Load a Chrome-trace JSON file back into raw span dicts."""
+    with open(path) as f:
+        blob = json.load(f)
+    events = blob["traceEvents"] if isinstance(blob, dict) else blob
+    spans = []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        args = dict(ev.get("args", {}))
+        spans.append(
+            {
+                "name": ev["name"],
+                "tier": ev.get("cat", "-"),
+                "t0": ev.get("ts", 0.0) / 1e6,
+                "dur": ev.get("dur", 0.0) / 1e6,
+                "id": args.pop("id", 0),
+                "parent": args.pop("parent", 0),
+                "trace": args.pop("trace", 0),
+                "tid": ev.get("tid", 0),
+                "attrs": args,
+            }
+        )
+    return spans

@@ -1,0 +1,246 @@
+"""The port end to end against the JAX package, on the CPU.
+
+An index is built once by the JAX package (the shared ``built_engine``
+fixture: n=4000, n_rep=32, seed 3) and carried across with
+``repro_torch.convert``; both engines then search the same state with the
+same config.  Host-computed stats (ledger, rounds, pairs, cache hits,
+fetches) must be exactly equal; gids equal except at reference ties
+within f32 tolerance; distances within rtol 1e-5, atol 1e-4 (the two
+sides sum squares in a different order).
+
+Also here: the port's own host build is byte-identical to the
+reference's, the package never imports JAX or ``repro``, the card is
+never faked, and ``chip_smoke.py``'s phases run at a tiny size on the
+CPU with the plain versions.
+"""
+import dataclasses
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import DHNSWEngine, EngineConfig, convert  # noqa: E402
+from repro_torch.kernels.quant_topk.ref import ids_agree_up_to_ties  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL, ATOL = 1e-5, 1e-4
+STAT_KEYS = ("net", "n_rounds", "n_pairs", "cache_hits", "n_fetches")
+BASE = dict(n_rep=32, ef=48, seed=3)
+
+CASES = [dict(mode=m, search_mode=s, b=4, cache_frac=0.25)
+         for m in ("naive", "no_doorbell", "full") for s in ("graph", "scan")]
+CASES += [dict(mode="full", search_mode="scan", b=6, quant="int8",
+               quant_kernel=qk, cache_frac=0.6, exact_frac=0.25, doorbell=16)
+          for qk in ("auto", "ref")]
+
+
+@pytest.fixture(scope="module")
+def jax_pkg():
+    pytest.importorskip("jax")
+    import repro.core as RC
+    return RC
+
+
+def _port_state(built_engine):
+    return convert.state_from_numpy(*convert.numpy_state(
+        built_engine.meta, built_engine.store))
+
+
+@pytest.mark.parametrize("kw", CASES, ids=lambda kw: "-".join(
+    str(kw.get(x, "")) for x in ("mode", "search_mode", "quant_kernel")))
+def test_search_matches_reference(jax_pkg, built_engine, sift_small, kw):
+    ref = jax_pkg.DHNSWEngine(jax_pkg.EngineConfig(**BASE, **kw))
+    ref.client.adopt_built(built_engine.meta,
+                           dataclasses.replace(built_engine.store),
+                           sift_small.data)
+    meta, store = _port_state(built_engine)
+    eng = DHNSWEngine(EngineConfig(**BASE, **kw), device="cpu")
+    eng.adopt_built(meta, store, sift_small.data)
+    # two batches: the second one starts from the caches the first left
+    for q in (sift_small.queries, sift_small.queries[::-1]):
+        dr, gr, sr = ref.search(q, k=10)
+        dt, gt, st = eng.search(q, k=10)
+        for key in STAT_KEYS:
+            assert st[key] == sr[key], key
+        if kw.get("quant") == "int8":
+            assert st["stage1_impl"] == "ref"
+            for key in ("rerank_rows", "rerank_hit_rows", "exact_admitted",
+                        "flat_rows"):
+                assert st[key] == sr[key], key
+        assert gt.dtype == gr.dtype == np.int64
+        assert dt.dtype == dr.dtype == np.float32
+        ext_d = np.concatenate([dr, np.full((len(dr), 1), np.inf)], 1)
+        ext_g = np.concatenate([gr, np.full((len(gr), 1), -1)], 1)
+        ok, n_diff = ids_agree_up_to_ties(gt, ext_g, ext_d, rtol=RTOL)
+        assert ok, f"{n_diff} gids differ beyond ties"
+        np.testing.assert_allclose(dt, dr, rtol=RTOL, atol=ATOL)
+
+
+def test_port_build_is_byte_identical(built_engine, sift_small):
+    """The port's own host build gives the reference's buffers and meta
+    graph byte for byte (same data, same seed), int8 mirror included."""
+    pytest.importorskip("jax")
+    from repro.core import layout as RLA
+
+    from repro_torch.core import layout as LA
+    from repro_torch.core import meta as ME
+    from repro_torch.core.hnsw import HNSWParams
+    cfg = EngineConfig(**BASE)
+    meta = ME.build_meta(sift_small.data, cfg.n_rep, seed=cfg.seed,
+                         meta_levels=cfg.meta_levels)
+    store = LA.build_store(sift_small.data, meta, sub_params=HNSWParams(
+        M=max(cfg.sub_M0 // 2, 2), M0=cfg.sub_M0,
+        ef_construction=cfg.ef_construction))
+    rm, rs = built_engine.meta, built_engine.store
+    for a in ("reps", "rep_ids", "assignments"):
+        np.testing.assert_array_equal(getattr(meta, a), getattr(rm, a))
+    for a in ("vectors", "adjacency", "node_level"):
+        got, want = getattr(meta.graph, a), getattr(rm.graph, a)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert (meta.graph.entry, meta.graph.n_levels) == (rm.graph.entry,
+                                                       rm.graph.n_levels)
+    assert dataclasses.asdict(store.spec) == dataclasses.asdict(rs.spec)
+    for a in ("graph_buf", "vec_buf", "meta_table", "n_base"):
+        got, want = getattr(store, a), getattr(rs, a)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), a
+    q = LA.attach_quant_mirror(dataclasses.replace(store), 32)
+    r = RLA.attach_quant_mirror(dataclasses.replace(rs), 32)
+    assert q.qvec_buf.tobytes() == r.qvec_buf.tobytes()
+    assert q.qscale_buf.tobytes() == r.qscale_buf.tobytes()
+    flat_t, flat_r = LA.flat_quant_rows(q), RLA.flat_quant_rows(r)
+    for a, b in zip(flat_t, flat_r):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_convert_round_trip(built_engine):
+    meta, store = _port_state(built_engine)
+    ma, sa = convert.numpy_state(meta, store)
+    m2, s2 = convert.state_from_numpy(ma, sa)
+    assert s2.spec == store.spec and s2.qvec_buf is None
+    assert m2.graph.vectors.tobytes() == meta.graph.vectors.tobytes()
+    assert s2.graph_buf.tobytes() == store.graph_buf.tobytes()
+
+
+# ------------------------------------------------------------ isolation
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:\.|\s|$)",
+                     re.M)
+
+
+def test_port_sources_import_no_jax_and_no_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in _IMPORT.finditer(f.read_text())]
+    assert not bad, bad
+
+
+def test_cpu_search_loads_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "from repro_torch import DHNSWEngine, EngineConfig\n"
+        "from repro_torch.data.synthetic import sift_like\n"
+        "ds = sift_like(n=600, n_queries=8, seed=1)\n"
+        "for kw in (dict(search_mode='graph', use_gather_kernel=True),\n"
+        "           dict(search_mode='scan', quant='int8',\n"
+        "                quant_kernel='auto', cache_frac=0.6)):\n"
+        "    e = DHNSWEngine(EngineConfig(n_rep=8, b=2, **kw),\n"
+        "                    device='cpu').build(ds.data)\n"
+        "    d, g, st = e.search(ds.queries, k=5)\n"
+        "    assert g.shape == (8, 5)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+# ------------------------------------------------------------ no fallback
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DHNSWEngine(EngineConfig(n_rep=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DHNSWEngine(EngineConfig(n_rep=8), device="cuda:0")
+
+
+def test_paths_outside_the_slice_raise(built_engine, sift_small):
+    meta, store = _port_state(built_engine)
+    eng = DHNSWEngine(EngineConfig(**BASE), device="cpu")
+    eng.adopt_built(meta, store, sift_small.data)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        eng.insert(sift_small.queries[:1])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        eng.pool.append(sift_small.queries[0], 0, 0, ledger=None)
+    for pool in ("sim_rdma", "sharded", "remote"):
+        with pytest.raises(NotImplementedError):
+            DHNSWEngine(EngineConfig(pool=pool, **BASE), device="cpu")
+    # int8 whose quantized tier is not dense-resident: per-pair stage 1
+    q8 = DHNSWEngine(EngineConfig(quant="int8", quant_kernel="auto",
+                                  search_mode="scan", cache_frac=0.1,
+                                  **BASE), device="cpu")
+    q8.adopt_built(meta, dataclasses.replace(store), sift_small.data)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        q8.search(sift_small.queries[:4], k=5)
+
+
+# ------------------------------------------------------------ chip_smoke
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    return cs
+
+
+def test_chip_smoke_phases_on_cpu(chip_smoke):
+    """Every phase that does not need the card, at a tiny size, with the
+    plain versions (the kernels' wrappers take them on the CPU)."""
+    cs = chip_smoke
+    cpu = torch.device("cpu")
+    ds, meta, store, qstore = cs.phase_index(1000, 32, 8)
+    gathers = cs.main_path_gathers(meta, store, ds.queries, cpu, doorbell=16)
+    assert gathers[0] and sum(len(i) for i in gathers[0]) == (
+        gathers[1] * store.spec.fetch_blocks)
+    recs = cs.phase_kernels(store, qstore, ds.queries, gathers[0], cpu)
+    assert [r["name"] for r in recs] == ["gather_blocks", "quant_topk"]
+    assert all(r["ms"] is None and r["bound_ms"] > 0 for r in recs)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(set(r) == keys for r in recs)
+    assert all((ROOT / r["source"]).exists() for r in recs)
+    exact = cs.phase_exact(ds, meta, store, cpu, k=10, doorbell=16,
+                           gathers=gathers)
+    q8 = cs.phase_int8(ds, meta, qstore, cpu, k=10, doorbell=16)
+    assert exact == {"gather_blocks": 0} and q8 == {"quant_topk": 0}
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """No result line without CUDA, in the checkout and alone."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

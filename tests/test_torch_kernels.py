@@ -1,0 +1,286 @@
+"""The port's kernels against the JAX package's, and against their plain
+torch versions on the card.
+
+On the CPU the port's wrappers run their plain torch versions; they are
+held against the reference's ``ops`` functions run the way
+``tests/test_kernels.py`` runs them (Pallas in interpret mode).  Inputs
+are made with numpy from a seed and cross the frameworks as numpy.
+
+Tests marked ``gpu`` hold each CUDA kernel against its plain version on
+the card; they decide inside the test whether a card exists and skip
+here.  Tolerances: distances within rtol 1e-5 (the two sides sum in a
+different order), ids equal except where the reference's distances tie
+within 1e-5 relative; gathers are exact copies.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.gather_blocks import ops as GO  # noqa: E402
+from repro_torch.kernels.gather_blocks.ref import gather_blocks_ref  # noqa: E402
+from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
+from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
+    dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
+from repro_torch.quant.codec import quantize_groups  # noqa: E402
+
+RTOL = 1e-5
+
+QUANT_SWEEP = [(1, 100, 16, 16, 1), (7, 333, 128, 32, 10),
+               (37, 500, 960, 64, 5), (128, 256, 64, 32, 16),
+               (130, 513, 32, 8, 3)]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's kernel entry points (imported here, not at module
+    level, so the ``gpu`` tests also run where JAX is not installed)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.gather_blocks.ops import gather_blocks
+    from repro.kernels.quant_topk.ops import quant_topk
+    from repro.kernels.quant_topk.ref import quant_topk_ref as jref
+
+    class Ref:
+        pass
+    r = Ref()
+    r.jnp, r.gather, r.quant_topk, r.quant_topk_ref = (jnp, gather_blocks,
+                                                        quant_topk, jref)
+    return r
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _quant_inputs(rng, B, N, D, group):
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    codes, scales = quantize_groups(x, group)
+    return q, codes, scales
+
+
+def _assert_topk(d, i, d_ref_ext, i_ref_ext, atol=0.0):
+    k = i.shape[1]
+    ok, n = ids_agree_up_to_ties(i, i_ref_ext, d_ref_ext, rtol=RTOL)
+    assert ok, f"{n} ids differ beyond ties"
+    live = np.isfinite(d_ref_ext[:, :k])
+    assert (np.isfinite(d) == live).all()
+    np.testing.assert_allclose(d[live], d_ref_ext[:, :k][live], rtol=RTOL,
+                               atol=atol)
+    assert (i[~live] == -1).all()
+
+
+def _jax_ref_ext(ref, q, codes, scales, k, group, n_valid=None):
+    """The reference's plain top-(k+1): the list the tie rule reads."""
+    jnp = ref.jnp
+    N = codes.shape[0]
+    kk = min(k + 1, N)
+    dr, ir = ref.quant_topk_ref(jnp.asarray(q), jnp.asarray(codes),
+                                jnp.asarray(scales), kk, group,
+                                N if n_valid is None else n_valid)
+    dr, ir = np.asarray(dr), np.asarray(ir)
+    if kk < k + 1:
+        dr = np.concatenate([dr, np.full((len(dr), k + 1 - kk), np.inf)], 1)
+        ir = np.concatenate([ir, np.full((len(ir), k + 1 - kk), -1)], 1)
+    bad = ~np.isfinite(dr)
+    return dr, np.where(bad, -1, ir)
+
+
+# ------------------------------------------------------------ gather_blocks
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.int8])
+@pytest.mark.parametrize("m", [1, 5, 64])
+def test_gather_blocks_matches_reference(ref, rng, dtype, m):
+    buf = (rng.standard_normal((40, 192)) * 100).astype(dtype)
+    ids = rng.integers(0, 40, m).astype(np.int32)
+    want = np.asarray(ref.gather(ref.jnp.asarray(buf), ref.jnp.asarray(ids)))
+    got = GO.gather_blocks(torch.from_numpy(buf), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        gather_blocks_ref(torch.from_numpy(buf), torch.from_numpy(ids)).numpy(),
+        want)
+
+
+def test_gather_blocks_repeated_ids_matches_reference(ref, rng):
+    buf = rng.standard_normal((16, 64)).astype(np.float32)
+    ids = np.array([3, 3, 3, 0, 15, 3], np.int32)
+    want = np.asarray(ref.gather(ref.jnp.asarray(buf), ref.jnp.asarray(ids)))
+    got = GO.gather_blocks(torch.from_numpy(buf), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_blocks_checks_inputs():
+    buf = torch.zeros((4, 8))
+    with pytest.raises(ValueError):
+        GO.gather_blocks(buf[0], torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        GO.gather_blocks(buf, torch.zeros((2, 2), dtype=torch.int32))
+
+
+def test_gather_blocks_out_of_range_raises():
+    buf = torch.zeros((4, 8))
+    for bad in ([1, 4], [-1, 0]):
+        with pytest.raises(IndexError):
+            GO.gather_blocks(buf, torch.tensor(bad, dtype=torch.int32))
+
+
+def test_cpu_wrappers_launch_nothing(rng):
+    """On the CPU the wrappers take the plain versions and count no
+    launch."""
+    GO.launches = QO.launches = 0
+    GO.gather_blocks(torch.zeros((4, 8)), torch.tensor([1, 2]))
+    q, codes, scales = _quant_inputs(rng, 3, 50, 16, 8)
+    QO.quant_topk(torch.from_numpy(q), torch.from_numpy(codes),
+                  torch.from_numpy(scales), 4, 8)
+    assert GO.launches == 0 and QO.launches == 0
+
+
+# ------------------------------------------------------------- quant_topk
+
+@pytest.mark.parametrize("B,N,D,group,k", QUANT_SWEEP)
+def test_quant_topk_matches_reference(ref, rng, B, N, D, group, k):
+    jnp = ref.jnp
+    q, codes, scales = _quant_inputs(rng, B, N, D, group)
+    d, i = ref.quant_topk(jnp.asarray(q), jnp.asarray(codes),
+                          jnp.asarray(scales), k, group)
+    d_ext, i_ext = _jax_ref_ext(ref, q, codes, scales, k, group)
+    # the reference kernel itself agrees with its own plain version
+    _assert_topk(np.asarray(d), np.asarray(i), d_ext, i_ext, atol=1e-4)
+    pd, pi = QO.quant_topk(torch.from_numpy(q), torch.from_numpy(codes),
+                           torch.from_numpy(scales), k, group)
+    assert pd.dtype == torch.float32 and pi.dtype == torch.int32
+    _assert_topk(pd.numpy(), pi.numpy(), d_ext, i_ext)
+    _assert_topk(pd.numpy(), pi.numpy(), np.concatenate(
+        [np.asarray(d), d_ext[:, k:]], 1), np.concatenate(
+        [np.asarray(i), i_ext[:, k:]], 1), atol=1e-4)
+
+
+@pytest.mark.parametrize("n_valid", [1, 50, 255, 256])
+def test_quant_topk_masking_matches_reference(ref, rng, n_valid):
+    jnp = ref.jnp
+    q, codes, scales = _quant_inputs(rng, 5, 256, 32, 8)
+    d, i = ref.quant_topk(jnp.asarray(q), jnp.asarray(codes),
+                          jnp.asarray(scales), 8, 8, n_valid=n_valid)
+    pd, pi = QO.quant_topk(torch.from_numpy(q), torch.from_numpy(codes),
+                           torch.from_numpy(scales), 8, 8, n_valid=n_valid)
+    d_ext, i_ext = _jax_ref_ext(ref, q, codes, scales, 8, 8, n_valid)
+    _assert_topk(pd.numpy(), pi.numpy(), d_ext, i_ext)
+    live = pi.numpy() >= 0
+    assert (pi.numpy()[live] < n_valid).all()
+    np.testing.assert_array_equal(pi.numpy() >= 0, np.asarray(i) >= 0)
+    if n_valid < 8:          # padding semantics: inf/-1 tail
+        assert np.isinf(pd.numpy()[:, n_valid:]).all()
+        assert (pi.numpy()[:, n_valid:] == -1).all()
+
+
+@pytest.mark.parametrize("B,N,D,group,k", QUANT_SWEEP[:3])
+def test_quant_topk_use_ref_is_the_plain_version(ref, rng, B, N, D, group,
+                                                 k):
+    """``use_ref=True`` returns the plain version's raw result, as the
+    reference wrapper does, and the plain versions agree."""
+    jnp = ref.jnp
+    q, codes, scales = _quant_inputs(rng, B, N, D, group)
+    dj, ij = ref.quant_topk(jnp.asarray(q), jnp.asarray(codes),
+                            jnp.asarray(scales), k, group, use_ref=True)
+    pd, pi = QO.quant_topk(torch.from_numpy(q), torch.from_numpy(codes),
+                           torch.from_numpy(scales), k, group, use_ref=True)
+    d_ext, i_ext = _jax_ref_ext(ref, q, codes, scales, k, group)
+    _assert_topk(pd.numpy(), pi.numpy(), d_ext, i_ext)
+    np.testing.assert_allclose(pd.numpy(), np.asarray(dj), rtol=RTOL)
+    x = dequantize_ref(torch.from_numpy(codes), torch.from_numpy(scales),
+                       group)
+    np.testing.assert_array_equal(
+        x.numpy(), (codes.astype(np.float32).reshape(N, D // group, group)
+                    * scales[:, :, None]).reshape(N, D))
+
+
+def test_quant_topk_k_past_rows(rng):
+    """k larger than N: the kernel's contract pads with inf/-1."""
+    q, codes, scales = _quant_inputs(rng, 3, 5, 16, 8)
+    d, i = QO.quant_topk(torch.from_numpy(q), torch.from_numpy(codes),
+                         torch.from_numpy(scales), 8, 8)
+    assert d.shape == (3, 8)
+    assert np.isinf(d[:, 5:].numpy()).all() and (i[:, 5:] == -1).all()
+    assert sorted(i[0, :5].tolist()) == list(range(5))
+
+
+def test_ids_agree_up_to_ties():
+    ref_d = np.array([[1.0, 2.0, 2.0, 3.0]])
+    ref_i = np.array([[7, 8, 9, 10]])
+    assert ids_agree_up_to_ties(np.array([[7, 9, 8]]), ref_i, ref_d)[0]
+    assert not ids_agree_up_to_ties(np.array([[8, 7, 9]]), ref_i, ref_d)[0]
+    assert not ids_agree_up_to_ties(np.array([[7, 8, 10]]), ref_i, ref_d)[0]
+
+
+# ------------------------------------------------------ on the card (gpu)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,blk", [(torch.float32, 8192),
+                                       (torch.int32, 1088),
+                                       (torch.int8, 8192),
+                                       (torch.float32, 256),
+                                       (torch.int8, 193)])
+@pytest.mark.parametrize("m", [1, 5, 528])
+def test_gather_blocks_kernel_on_card(dtype, blk, m):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_blocks = 600
+    if dtype.is_floating_point:
+        buf = torch.randn((n_blocks, blk), generator=g, device=dev).to(dtype)
+    else:
+        buf = torch.randint(-100, 100, (n_blocks, blk), generator=g,
+                            device=dev).to(dtype)
+    ids = torch.randint(0, n_blocks, (m,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[: m // 2] = ids[0]                      # repeated ids
+    before = GO.launches
+    got = GO.gather_blocks(buf, ids)
+    torch.cuda.synchronize()
+    assert GO.launches == before + 1
+    assert torch.equal(got, gather_blocks_ref(buf, ids))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad_id", [600, -1])
+def test_gather_blocks_kernel_out_of_range_raises(bad_id):
+    """An id past either end raises on the card as on the CPU, and the
+    device stays usable."""
+    dev = _cuda()
+    buf = torch.arange(600 * 64, dtype=torch.float32, device=dev).reshape(
+        600, 64)
+    ids = torch.tensor([3, bad_id, 7], dtype=torch.int32, device=dev)
+    with pytest.raises(IndexError):
+        GO.gather_blocks(buf, ids)
+    with pytest.raises(IndexError):
+        gather_blocks_ref(buf.cpu(), ids.cpu())
+    ok = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+    assert torch.equal(GO.gather_blocks(buf, ok), buf[[3, 7]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,D,group,k,n_valid", [
+    *[(B, N, D, g, k, None) for B, N, D, g, k in QUANT_SWEEP],
+    (5, 256, 32, 8, 8, 1), (5, 256, 32, 8, 8, 50), (3, 5, 16, 8, 8, None),
+    (70, 3000, 128, 32, 128, 2900), (2000, 20000, 128, 32, 20, 19000)])
+def test_quant_topk_kernel_on_card(B, N, D, group, k, n_valid):
+    dev = _cuda()
+    rng = np.random.default_rng(B * 7 + N)
+    q, codes, scales = _quant_inputs(rng, B, N, D, group)
+    qt, ct, st = (torch.from_numpy(a).to(dev) for a in (q, codes, scales))
+    before = QO.launches
+    d, i = QO.quant_topk(qt, ct, st, k, group, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert QO.launches == before + 1
+    nv = N if n_valid is None else n_valid
+    kk = min(k + 1, N)
+    dr, ir = quant_topk_ref(qt, ct, st, kk, group, nv)
+    dr, ir = dr.cpu().numpy(), ir.cpu().numpy()
+    if kk < k + 1:
+        dr = np.concatenate([dr, np.full((B, k + 1 - kk), np.inf)], 1)
+        ir = np.concatenate([ir, np.full((B, k + 1 - kk), -1)], 1)
+    ir = np.where(np.isfinite(dr), ir, -1)
+    _assert_topk(d.cpu().numpy(), i.cpu().numpy(), dr, ir, atol=1e-3)
