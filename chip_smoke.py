@@ -12,19 +12,31 @@ Phases, each printing its own lines:
 3. index build on the host: ``sift_like(n=100_000, n_queries=2000)``,
    256 partitions (the paper's geometry, cut as ``reduced`` says);
 4. kernels against their plain torch versions on the card at the shapes
-   the main path gives them (for the gather, the ids of every round of
-   one exact batch, planned as the engine plans them), with times (CUDA
-   events) beside the bound, the plain version's time and the library
-   call's time;
+   the paths give them (for the gather, the ids of every launch of
+   phases 5 and 8, planned as the engine plans them; for
+   ``distance_topk``, the throughput benchmark's B=128 x N=4096 and the
+   flat f32 twin of ``quant_topk``'s shape), with times (CUDA events)
+   beside the bound, the plain version's time and the library call's
+   time;
 5. exact search (``mode="full"``, b=4, ef=48, doorbell 16, RDMA fabric,
    the CUDA doorbell gather) for ``search_mode`` graph and scan, one batch
    of 2000 at k=10, held against the same engine with the gather off;
 6. int8 flat search (``quant_kernel="auto"``: the CUDA ``quant_topk``
-   stage 1), held against ``quant_kernel="ref"``.
+   stage 1), held against ``quant_kernel="ref"``;
+7. the throughput benchmark (``benchmarks/torch_throughput.py`` at the
+   ``full`` preset, on the index of phase 3): QPS vs batch, cache and
+   doorbell ablations, and ``distance_topk`` against its plain version;
+   its doorbell-16 row must count what phase 5's scan batch counted;
+8. int8 search through the per-pair stage 1 (``benchmarks/
+   torch_quant.py``'s per-pair cell: ``quant_kernel="off"``,
+   ``cache_frac`` 0.25, ``exact_frac`` 0.25, b=6, doorbell 16) in both
+   search modes, 2000 queries in 4 batches, with the CUDA gather, held
+   against the same engine with the gather off (in turns).
 
-Every kernel's launch counter is set to 0 just before each main-path
-search and read just after.  The last lines are the kernels' JSON
-record, the ``nvidia-smi`` line, and ``{"ok": true, "device": ...}``.
+Every kernel's launch counter is set to 0 just before each path is
+driven and read just after.  The last lines are the kernels' JSON record
+(launches summed over the paths that run each kernel), the
+``nvidia-smi`` line, and ``{"ok": true, "device": ...}``.
 Without a CUDA device the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -43,6 +55,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from benchmarks import (torch_common, torch_quant,  # noqa: E402
+                        torch_throughput)
 from repro_torch import DHNSWEngine, EngineConfig  # noqa: E402
 from repro_torch.core import device_store as DS  # noqa: E402
 from repro_torch.core import layout as LA  # noqa: E402
@@ -53,6 +67,8 @@ from repro_torch.core.cost_model import RDMA_100G  # noqa: E402
 from repro_torch.core.hnsw import HNSWParams, recall_at_k  # noqa: E402
 from repro_torch.data.synthetic import sift_like  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.distance_topk import ops as DO  # noqa: E402
+from repro_torch.kernels.distance_topk.ref import distance_topk_ref  # noqa: E402
 from repro_torch.kernels.gather_blocks import ops as GO  # noqa: E402
 from repro_torch.kernels.gather_blocks.ref import gather_blocks_ref  # noqa: E402
 from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
@@ -64,13 +80,15 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS_S = 67e12
 
 # the paper's SIFT1M run is 1M x 128-d with 500 partitions; the host-side
-# index build (pure-Python HNSW) takes ~90 s at 100k, so both are cut
+# index build (pure-Python HNSW, phase 3) takes 44-72 s at 100k on the
+# card's host, so both are cut
 REDUCED = {"n": [1_000_000, 100_000], "n_rep": [500, 256],
            "why": "host-side index build time (pure-Python HNSW)"}
 FULL = dict(n=100_000, n_queries=2000, n_rep=256, k=10, doorbell=16)
 SEED = 0
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-3
 RECALL_FLOOR = 0.8           # sanity floor for recall@10 at full size
+PAIR_BATCHES = 4             # phase 8's batches, so the tiers are reused
 
 
 def log(*a) -> None:
@@ -155,18 +173,21 @@ def phase_index(n: int, n_queries: int, n_rep: int, *, seed: int = SEED,
 
 def flat_view(qstore, device):
     """The dense-resident int8 flat database exactly as
-    ``ComputeClient._sync_flat`` stages it: (codes, scales, n_valid)."""
+    ``ComputeClient._sync_flat`` stages it: (codes, scales, n_valid), and
+    its f32 twin: the same region rows, padded the same way."""
     spec = qstore.spec
     rows, _, _ = LA.flat_quant_rows(qstore)
     n = len(rows)
     idx = np.full(SCH.pow2_pad(max(n, 1), lo=256), -1, np.int64)
     idx[:n] = rows
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=device)
     codes, scales = DS.gather_quant_rows(
         torch.as_tensor(qstore.qvec_buf, device=device),
-        torch.as_tensor(qstore.qscale_buf, device=device),
-        torch.as_tensor(idx, dtype=torch.int32, device=device),
+        torch.as_tensor(qstore.qscale_buf, device=device), idx,
         dim=spec.dim, group=spec.quant_group)
-    return codes, scales, n
+    vecs = DS.gather_rows(torch.as_tensor(qstore.vec_buf, device=device),
+                          idx, dim=spec.dim)
+    return codes, scales, vecs, n
 
 
 def exact_config(n_rep: int, doorbell: int, search_mode: str = "scan",
@@ -177,6 +198,35 @@ def exact_config(n_rep: int, doorbell: int, search_mode: str = "scan",
                         use_gather_kernel=gather)
 
 
+def pairs_config(n_rep: int, doorbell: int, search_mode: str = "scan",
+                 gather: bool = True) -> EngineConfig:
+    """The int8 per-pair path: ``benchmarks/torch_quant.py``'s per-pair
+    cell (``quant_kernel="off"``, ``cache_frac`` 0.25, ``exact_frac``
+    0.25, ``rerank_m`` 0, b=6)."""
+    return torch_quant.cell_config(
+        quant="int8", exact_frac=0.25, rerank_m=0, n_rep=n_rep,
+        quant_kernel="off", cache_frac=0.25, search_mode=search_mode,
+        doorbell=doorbell, use_gather_kernel=gather)
+
+
+def _route(meta, queries, device, b: int) -> np.ndarray:
+    g = meta.graph
+    pids, _ = S.meta_route(
+        torch.as_tensor(g.vectors, dtype=torch.float32, device=device),
+        torch.as_tensor(g.adjacency, dtype=torch.int32, device=device),
+        torch.as_tensor(queries, dtype=torch.float32, device=device),
+        int(g.entry), b=b, n_levels=g.n_levels)
+    return pids.cpu().numpy()
+
+
+def _round_ids(plan, store, device) -> list:
+    """The block ids of each fetching round's one ``read_spans`` call."""
+    return [torch.as_tensor(
+        np.concatenate([store.span_block_ids(int(p)) for p in rnd.fetch_pids]),
+        dtype=torch.int32, device=device)
+        for rnd in plan.rounds if len(rnd.fetch_pids)]
+
+
 def main_path_gathers(meta, store, queries, device, *, doorbell: int):
     """The block ids of every span read of one exact batch, round by
     round, planned as ``ComputeClient.search`` plans them on a fresh
@@ -185,42 +235,76 @@ def main_path_gathers(meta, store, queries, device, *, doorbell: int):
     all its fetched spans in one ``read_spans`` call, which is one gather
     launch per staged buffer.  Returns (ids per round, fetched spans)."""
     cfg = exact_config(meta.n_partitions, doorbell)
-    g = meta.graph
-    pids, _ = S.meta_route(
-        torch.as_tensor(g.vectors, dtype=torch.float32, device=device),
-        torch.as_tensor(g.adjacency, dtype=torch.int32, device=device),
-        torch.as_tensor(queries, dtype=torch.float32, device=device),
-        int(g.entry), b=cfg.b, n_levels=g.n_levels)
     cap = max(2, int(np.ceil(cfg.cache_frac * meta.n_partitions)))
-    plan = SCH.plan_batch(pids.cpu().numpy(), SCH.LRUCacheState(cap),
-                          doorbell=cfg.doorbell)
-    ids = [torch.as_tensor(
-        np.concatenate([store.span_block_ids(int(p)) for p in rnd.fetch_pids]),
-        dtype=torch.int32, device=device)
-        for rnd in plan.rounds if len(rnd.fetch_pids)]
-    return ids, plan.n_fetches
+    plan = SCH.plan_batch(_route(meta, queries, device, cfg.b),
+                          SCH.LRUCacheState(cap), doorbell=cfg.doorbell)
+    return _round_ids(plan, store, device), plan.n_fetches
 
 
-def _gather_record(bufs, round_ids, device, timed: bool) -> dict:
-    """gather_blocks vs its plain version on every staged buffer at the
-    ids of every round of one exact batch (exactly equal).  The record's
-    work is what the exact path gathers in that batch: the graph and
-    vector blocks of every round, in the path's order."""
+def pair_path_gathers(meta, qstore, queries, device, *, doorbell: int,
+                      search_mode: str, n_batches: int) -> list:
+    """The block ids of every quantized span read of the int8 per-pair
+    path over ``n_batches`` batches, planned as ``_stage1_pairs`` plans
+    them on a fresh engine: each batch routed on its own, then
+    ``plan_batch`` over the quantized tier, whose capacity is what
+    ``_setup_quant`` gives this cell and whose state carries from batch
+    to batch.  Each fetching round is one gather launch per quantized
+    buffer (graph blocks, codes, scales).  Returns, per batch, (ids per
+    round, fetched spans)."""
+    cfg = pairs_config(meta.n_partitions, doorbell, search_mode)
+    spec = qstore.spec
+    cap = max(2, int(np.ceil(cfg.cache_frac * meta.n_partitions)))
+    exact_cap = max(1, int(round(cap * cfg.exact_frac)))
+    qpb = spec.quant_partition_bytes(include_graph=search_mode == "graph")
+    cache = SCH.LRUCacheState(
+        max(2, int((cap - exact_cap) * spec.partition_bytes() // qpb)))
+    per = len(queries) // n_batches
+    out = []
+    for i in range(n_batches):
+        plan = SCH.plan_batch(
+            _route(meta, queries[i * per:(i + 1) * per], device, cfg.b),
+            cache, doorbell=cfg.doorbell)
+        out.append((_round_ids(plan, qstore, device), plan.n_fetches))
+    return out
+
+
+# the staged buffers each path's read_spans gathers from, in its order
+EXACT_BUFS = ("graph", "vec")
+PAIR_BUFS = ("graph", "codes", "scales")
+
+
+def gather_launches(exact_gathers, pair_gathers) -> list:
+    """Every gather launch of the main path, as (buffer, ids): phase 5's
+    counted batch in each search mode (graph, then scan), then phase 8's
+    counted run in each search mode (``pair_gathers``: mode -> the
+    result of ``pair_path_gathers``)."""
+    out = [(buf, ids) for _ in ("graph", "scan")
+           for ids in exact_gathers[0] for buf in EXACT_BUFS]
+    for batches in pair_gathers.values():
+        out += [(buf, ids) for round_ids, _ in batches
+                for ids in round_ids for buf in PAIR_BUFS]
+    return out
+
+
+def _gather_record(bufs, launches, device, timed: bool) -> dict:
+    """gather_blocks vs its plain version at every launch of the main
+    path (``gather_launches``), exactly equal.  The record's work is
+    those launches, in the path's order: ``ms``, ``plain_ms``,
+    ``library_ms`` and ``bound_ms`` are of all of them together."""
     worst = 0.0
     bound_s = 0.0
     for name, buf in bufs.items():
         row_bytes = buf.shape[1] * buf.element_size()
-        for ids in round_ids:
+        for ids in {id(i): i for b, i in launches if b == name}.values():
             got = GO.gather_blocks(buf, ids)
             want = gather_blocks_ref(buf, ids)
             if got.dtype != want.dtype or not torch.equal(got, want):
                 raise AssertionError(f"gather_blocks != plain on {name}")
             worst = max(worst,
                         float((got.double() - want.double()).abs().max()))
-        rows = [int(ids.shape[0]) for ids in round_ids]
+        rows = [int(ids.shape[0]) for b, ids in launches if b == name]
         nbytes = sum(2 * m * row_bytes + 4 * m for m in rows)
-        if name in ("graph", "vec"):
-            bound_s += nbytes / PEAK_BYTES_S
+        bound_s += nbytes / PEAK_BYTES_S
         log(f"[4 kernels] gather_blocks {name:6s} "
             f"{str(buf.dtype).replace('torch.', ''):7s} row={row_bytes} B, "
             f"{len(rows)} launches of m={sorted(set(rows))} rows: exact "
@@ -233,72 +317,136 @@ def _gather_record(bufs, round_ids, device, timed: bool) -> dict:
            "plain_ms": None, "bound_ms": bound_s * 1e3, "bound_by": "bytes",
            "library_ms": None}
     if timed:
-        path_bufs = (bufs["graph"], bufs["vec"])
-        outs = [[torch.empty((ids.shape[0], b.shape[1]), dtype=b.dtype,
-                             device=device) for b in path_bufs]
-                for ids in round_ids]
+        work = [(bufs[b], ids) for b, ids in launches]
+        outs = [torch.empty((ids.shape[0], b.shape[1]), dtype=b.dtype,
+                            device=device) for b, ids in work]
         bad = torch.zeros(1, dtype=torch.int32, device=device)
 
         def kern():
-            for ids, out in zip(round_ids, outs):
-                for b, o in zip(path_bufs, out):
-                    GO._launch(b, ids, o, bad)
+            for (b, ids), o in zip(work, outs):
+                GO._launch(b, ids, o, bad)
 
         def plain():
-            for ids in round_ids:
-                for b in path_bufs:
-                    gather_blocks_ref(b, ids)
+            for b, ids in work:
+                gather_blocks_ref(b, ids)
 
         def library():
-            for ids in round_ids:
-                for b in path_bufs:
-                    torch.index_select(b, 0, ids)
+            for b, ids in work:
+                torch.index_select(b, 0, ids)
 
         rec["ms"] = device_ms(kern, 20)
         rec["plain_ms"] = device_ms(plain, 20)
         rec["library_ms"] = device_ms(library, 20)
         if bad.item():
             raise AssertionError("gather_blocks flagged an id out of range")
-    log(f"[4 kernels] gather_blocks, one exact batch (graph + vector blocks,"
-        f" {2 * len(round_ids)} launches): "
+    log(f"[4 kernels] gather_blocks, every launch of phases 5 and 8 "
+        f"({len(launches)} launches): "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
            f"index_select {rec['library_ms']:.4f} ms, " if timed else "")
         + f"bound {rec['bound_ms']:.4f} ms (bytes)")
     return rec
 
 
-def phase_kernels(store, qstore, queries, round_ids, device, *, k: int = 20
-                  ) -> list:
-    """Phase 4: each kernel against its plain version at the main path's
-    shapes.  gather_blocks: the ids of every round of one exact batch
-    (``main_path_gathers``) on each staged buffer (int32 graph blocks, f32
+def _topk_buffers(B: int, S: int, k: int, device) -> tuple:
+    """The two top-k kernels' output and scratch buffers: (part_d, part_i,
+    out_d, out_i) for ``S`` chunks."""
+    return (torch.empty((B, S, k), dtype=torch.float32, device=device),
+            torch.empty((B, S, k), dtype=torch.int32, device=device),
+            torch.empty((B, k), dtype=torch.float32, device=device),
+            torch.empty((B, k), dtype=torch.int32, device=device))
+
+
+def _topk_check(name: str, d, i, dr, ir, kk: int) -> tuple:
+    """Kernel (k) lists against the plain version's (k + 1): ids equal up
+    to ties, distances within rtol 1e-5 / atol 1e-3.  Returns (max |d -
+    plain|, differing tied positions)."""
+    d_h, i_h = d.cpu().numpy(), i.cpu().numpy()
+    dr_h, ir_h = dr.cpu().numpy(), ir.cpu().numpy()
+    ok, n_diff = ids_agree_up_to_ties(i_h, ir_h, dr_h, rtol=TOPK_RTOL)
+    if not ok:
+        raise AssertionError(f"{name} ids differ from plain beyond ties "
+                             f"({n_diff} positions)")
+    np.testing.assert_allclose(d_h, dr_h[:, :kk], rtol=TOPK_RTOL,
+                               atol=TOPK_ATOL)
+    return float(np.abs(d_h - dr_h[:, :kk]).max()), n_diff
+
+
+def _distance_record(shapes, device, timed: bool) -> dict:
+    """distance_topk against its plain version at each of ``shapes``
+    ((label, q, x, n_valid, k), the first one the throughput path's), in
+    f32 and on bf16 inputs (against the plain version on the same
+    f32-cast inputs).  The record's numbers are the first shape's."""
+    rec = {"name": "distance_topk", "route": "cuda",
+           "source": "src/repro_torch/kernels/distance_topk/csrc/"
+                     "distance_topk.cu",
+           "replaces": "src/repro/kernels/distance_topk/kernel.py:87",
+           "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+           "bound_ms": None, "bound_by": None, "library_ms": None}
+    for j, (label, q, x, nv, k) in enumerate(shapes):
+        (B, D), N = q.shape, x.shape[0]
+        kk = min(k, nv)
+        err, n_diff = _topk_check(
+            "distance_topk", *DO.distance_topk(q, x, kk, n_valid=nv),
+            *distance_topk_ref(q, x, min(kk + 1, N), nv), kk)
+        qb, xb = q.bfloat16(), x.bfloat16()
+        err_b, n_diff_b = _topk_check(
+            "distance_topk (bf16)", *DO.distance_topk(qb, xb, kk, n_valid=nv),
+            *distance_topk_ref(qb.float(), xb.float(), min(kk + 1, N), nv),
+            kk)
+        flops = 2.0 * B * nv * D
+        nbytes = B * D * 4 + nv * D * 4 + B * kk * 8
+        bound_by = ("operations" if flops / PEAK_F32_FLOPS_S
+                    >= nbytes / PEAK_BYTES_S else "bytes")
+        bound_ms = max(flops / PEAK_F32_FLOPS_S, nbytes / PEAK_BYTES_S) * 1e3
+        ms = plain_ms = None
+        if timed:
+            S = QO.n_chunks(B, nv)
+            bufs = _topk_buffers(B, S, kk, device)
+            ms = device_ms(lambda: DO._launch(q, x, kk, nv, *bufs, S), 20)
+            plain_ms = device_ms(lambda: distance_topk_ref(q, x, kk, nv), 5)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err, err_b)
+        if j == 0:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+        log(f"[4 kernels] distance_topk {label} B={B} N={N} n_valid={nv} "
+            f"D={D} k={kk}: ids equal up to ties ({n_diff} tied positions "
+            f"differ; bf16 inputs {n_diff_b}), max |d - plain| "
+            f"{max(err, err_b):.3g} | "
+            + (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, " if timed
+               else "")
+            + f"library none (no single torch call computes distance plus "
+              f"top-k), bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{flops / 1e9:.2f} GFLOP)")
+    return rec
+
+
+def phase_kernels(store, qstore, data, queries, launches, device, *,
+                  k: int = 20) -> list:
+    """Phase 4: each kernel against its plain version at the paths'
+    shapes.  gather_blocks: every launch of phases 5 and 8
+    (``gather_launches``) on its staged buffer (int32 graph blocks, f32
     vector blocks, int8 codes, f32 scales), exactly equal.  quant_topk:
     the flat stage-1 call (all queries against the padded flat int8
-    database), ids equal up to ties and distances within rtol 1e-5 /
-    atol 1e-3.  Times only on the card."""
+    database).  distance_topk: the throughput benchmark's call
+    (``queries[:128]`` x ``data[:4096]``, k=10) and the flat f32 twin of
+    the quant_topk call.  Top-k ids equal up to ties and distances within
+    rtol 1e-5 / atol 1e-3.  Times only on the card."""
     timed = device.type == "cuda"
     bufs = {"graph": torch.as_tensor(store.graph_buf, device=device),
             "vec": torch.as_tensor(store.vec_buf, device=device),
             "codes": torch.as_tensor(qstore.qvec_buf, device=device),
             "scales": torch.as_tensor(qstore.qscale_buf, device=device)}
-    records = [_gather_record(bufs, round_ids, device, timed)]
+    records = [_gather_record(bufs, launches, device, timed)]
 
-    codes, scales, n_valid = flat_view(qstore, device)
+    codes, scales, vecs, n_valid = flat_view(qstore, device)
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
     group = qstore.spec.quant_group
     B, D = q.shape
     kk = min(k, n_valid)
-    d, i = QO.quant_topk(q, codes, scales, kk, group, n_valid=n_valid)
-    dr, ir = quant_topk_ref(q, codes, scales, kk + 1, group, n_valid)
-    d_h, i_h = d.cpu().numpy(), i.cpu().numpy()
-    dr_h, ir_h = dr.cpu().numpy(), ir.cpu().numpy()
-    ok, n_diff = ids_agree_up_to_ties(i_h, ir_h, dr_h, rtol=TOPK_RTOL)
-    if not ok:
-        raise AssertionError(f"quant_topk ids differ from plain beyond ties "
-                             f"({n_diff} positions)")
-    np.testing.assert_allclose(d_h, dr_h[:, :kk], rtol=TOPK_RTOL,
-                               atol=TOPK_ATOL)
-    q_err = float(np.abs(d_h - dr_h[:, :kk]).max())
+    q_err, n_diff = _topk_check(
+        "quant_topk", *QO.quant_topk(q, codes, scales, kk, group,
+                                     n_valid=n_valid),
+        *quant_topk_ref(q, codes, scales, kk + 1, group, n_valid), kk)
     flops = 2.0 * B * n_valid * D
     nbytes = (B * D * 4 + n_valid * D + n_valid * (D // group) * 4
               + B * kk * 8)
@@ -314,10 +462,7 @@ def phase_kernels(store, qstore, queries, round_ids, device, *, k: int = 20
            "library_ms": None}
     if timed:
         S = QO.n_chunks(B, n_valid)
-        bufs_q = (torch.empty((B, S, kk), dtype=torch.float32, device=device),
-                  torch.empty((B, S, kk), dtype=torch.int32, device=device),
-                  torch.empty((B, kk), dtype=torch.float32, device=device),
-                  torch.empty((B, kk), dtype=torch.int32, device=device))
+        bufs_q = _topk_buffers(B, S, kk, device)
         rec["ms"] = device_ms(lambda: QO._launch(
             q, codes, scales, kk, group, n_valid, *bufs_q, S), 20)
         rec["plain_ms"] = device_ms(lambda: quant_topk_ref(
@@ -330,16 +475,23 @@ def phase_kernels(store, qstore, queries, round_ids, device, *, k: int = 20
            if timed else "")
         + f"library none, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']}, {flops / 1e9:.1f} GFLOP)")
+    x_small = torch.as_tensor(data[:4096], device=device)
+    records.append(_distance_record(
+        [("throughput", q[:128], x_small, x_small.shape[0], 10),
+         ("flat f32", q, vecs, n_valid, k)], device, timed))
     return records
 
 
+KERNEL_OPS = {"gather_blocks": GO, "quant_topk": QO, "distance_topk": DO}
+
+
 def _reset_launches() -> None:
-    GO.launches = 0
-    QO.launches = 0
+    for ops in KERNEL_OPS.values():
+        ops.launches = 0
 
 
 def _launches() -> dict:
-    return {"gather_blocks": GO.launches, "quant_topk": QO.launches}
+    return {name: ops.launches for name, ops in KERNEL_OPS.items()}
 
 
 def _search(eng, queries, k: int, device):
@@ -356,24 +508,36 @@ def _search(eng, queries, k: int, device):
     return d, g, st, wall, _launches()
 
 
-def _in_turns(make_engine, variants, queries, k: int, device) -> dict:
-    """Search one batch with a fresh engine per variant, in turns
-    (a, b, b, a), so that neither variant alone pays the warm-up.  Returns
-    variant -> the first run's (d, g, stats, launches) and both walls."""
+def _in_turns(make_engine, variants, queries, k: int, device,
+              n_batches: int = 1) -> dict:
+    """Search the queries in ``n_batches`` batches with a fresh engine per
+    variant, in turns (a, b, b, a), so that neither variant alone pays the
+    warm-up.  Returns variant -> the first run's batches, each (d, g,
+    stats, wall s, launches), and every run's batch walls."""
+    per = len(queries) // n_batches
     out = {}
     for v in (*variants, *variants[::-1]):
-        d, g, st, wall, n = _search(make_engine(v), queries, k, device)
+        eng = make_engine(v)
+        runs = [_search(eng, queries[i * per:(i + 1) * per], k, device)
+                for i in range(n_batches)]
+        walls = [r[3] for r in runs]
         if v in out:
-            out[v]["walls"].append(wall)
+            out[v]["walls"].append(walls)
         else:
-            out[v] = {"d": d, "g": g, "st": st, "launches": n,
-                      "walls": [wall]}
+            out[v] = {"batches": runs, "walls": [walls]}
     return out
 
 
 def _host_split(st) -> str:
     return (f"route {st['meta_s']:.3f} s, plan {st['plan_s']:.3f} s, "
             f"serve {st['sub_s']:.3f} s")
+
+
+def _counted_equal(st, other) -> bool:
+    """The counted stats of two searches are equal."""
+    keys = ("net", "n_rounds", "n_pairs", "cache_hits", "n_fetches",
+            "rerank_rows", "rerank_hit_rows", "exact_admitted")
+    return all(st.get(key) == other.get(key) for key in keys)
 
 
 def _check_output(d, g, B: int, k: int, n: int, what: str) -> None:
@@ -400,7 +564,7 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
     results must be equal).  ``gathers`` is ``main_path_gathers``' result:
     each batch must fetch the spans it planned, in one gather launch per
     staged buffer and round, so phase 4 timed the launches made here.
-    Returns the gather launches of the main path."""
+    Returns the gather launches of the path and the scan batch's stats."""
     launches = 0
     round_ids, n_fetches = gathers
     B, n = ds.queries.shape[0], ds.data.shape[0]
@@ -412,19 +576,19 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
                 meta, dataclasses.replace(store), ds.data)
         outs = _in_turns(make, (False, True), ds.queries, k, device)
         on, off = outs[True], outs[False]
-        n_launch = on["launches"]["gather_blocks"]
-        if off["launches"]["gather_blocks"]:
+        d, g, st, _, n_on = on["batches"][0]
+        d0, g0, _, _, n_off = off["batches"][0]
+        n_launch = n_on["gather_blocks"]
+        if n_off["gather_blocks"]:
             raise AssertionError("gather_blocks launched with the gather off")
-        want = 2 * len(round_ids) if device.type == "cuda" else 0
-        if n_launch != want or on["st"]["n_fetches"] != n_fetches:
+        want = len(EXACT_BUFS) * len(round_ids) if device.type == "cuda" else 0
+        if n_launch != want or st["n_fetches"] != n_fetches:
             raise AssertionError(
                 f"exact {search_mode}: {n_launch} gather launches and "
-                f"{on['st']['n_fetches']} fetches, planned {want} and "
-                f"{n_fetches}")
+                f"{st['n_fetches']} fetches, planned {want} and {n_fetches}")
         launches += n_launch
-        d, g, st = on["d"], on["g"], on["st"]
         _check_output(d, g, B, k, n, f"exact {search_mode}")
-        if not (np.array_equal(g, off["g"]) and np.array_equal(d, off["d"])):
+        if not (np.array_equal(g, g0) and np.array_equal(d, d0)):
             raise AssertionError(f"exact {search_mode}: gather kernel on/off "
                                  "results differ")
         rec = recall_at_k(g, ds.gt_ids[:, :k])
@@ -432,9 +596,10 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
             raise AssertionError(f"exact {search_mode}: recall@{k} {rec}")
         log(f"[5 exact {search_mode}] recall@{k}={rec:.4f} | {_counted(st)}"
             f" | gather launches {n_launch} | wall s gather on "
-            f"{on['walls']}, off {off['walls']} (off, on, on, off) | host "
+            f"{[w[0] for w in on['walls']]}, off "
+            f"{[w[0] for w in off['walls']]} (off, on, on, off) | host "
             f"split (on, first run): {_host_split(st)} | equal to gather off")
-    return {"gather_blocks": launches}
+    return {"gather_blocks": launches}, st
 
 
 def phase_int8(ds, meta, qstore, device, *, k: int, doorbell: int,
@@ -452,16 +617,16 @@ def phase_int8(ds, meta, qstore, device, *, k: int, doorbell: int,
             meta, dataclasses.replace(qstore), ds.data)
     outs = _in_turns(make, ("ref", "auto"), ds.queries, k, device)
     auto, ref = outs["auto"], outs["ref"]
-    d, g, st = auto["d"], auto["g"], auto["st"]
-    dr, gr, sr = ref["d"], ref["g"], ref["st"]
-    launches = auto["launches"]["quant_topk"]
+    d, g, st, _, n_auto = auto["batches"][0]
+    dr, gr, sr, _, n_ref = ref["batches"][0]
+    launches = n_auto["quant_topk"]
     want = "cuda" if device.type == "cuda" else "ref"
     if st["stage1_impl"] != want or sr["stage1_impl"] != "ref":
         raise AssertionError(f"stage1_impl {st['stage1_impl']} / "
                              f"{sr['stage1_impl']}")
     if device.type == "cuda" and launches == 0:
         raise AssertionError("quant_topk was not launched")
-    if ref["launches"]["quant_topk"]:
+    if n_ref["quant_topk"]:
         raise AssertionError("quant_topk launched under quant_kernel='ref'")
     _check_output(d, g, B, k, n, "int8 flat")
     # the reference list for ties: the plain run's own top-k, extended by
@@ -480,10 +645,119 @@ def phase_int8(ds, meta, qstore, device, *, k: int, doorbell: int,
         f"{recall_at_k(gr, ds.gt_ids[:, :k]):.4f}) | {_counted(st)} | "
         f"stage1_impl={st['stage1_impl']} flat_rows={st['flat_rows']} "
         f"rerank_rows={st['rerank_rows']} | quant_topk launches {launches}"
-        f" | wall s auto {auto['walls']}, ref {ref['walls']} (ref, auto, "
+        f" | wall s auto {[w[0] for w in auto['walls']]}, ref "
+        f"{[w[0] for w in ref['walls']]} (ref, auto, "
         f"auto, ref) | host split (auto, first run): {_host_split(st)} | "
         f"{n_diff} positions differ from the ref, all at ties")
     return {"quant_topk": launches}
+
+
+def phase_throughput(ds, meta, store, device, *, preset: dict,
+                     scan_stats) -> dict:
+    """Phase 7: ``benchmarks/torch_throughput.run`` on the index of phase
+    3.  Its doorbell-16 row is the first batch of ``preset["batch"]``
+    queries on a fresh scan engine with ``cache_frac`` 0.10, as phase 5's
+    exact scan batch is, so it must count the same trips, bytes, hits and
+    fetches.  Returns the path's kernel launches."""
+    log(f"[7 throughput] benchmarks/torch_throughput.py, preset "
+        f"{json.dumps(preset)}:")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    rows = torch_throughput.run((meta, store, ds.data), preset=preset, ds=ds,
+                                device=device)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    if device.type == "cuda" and launches["distance_topk"] == 0:
+        raise AssertionError("distance_topk was not launched on the "
+                             "throughput path")
+    db16 = next(r for r in rows if r["name"] == "doorbell/width16")
+    net = scan_stats["net"]
+    want = {"trips": net["round_trips"], "bytes": int(net["bytes"]),
+            "hits": scan_stats["cache_hits"],
+            "fetches": scan_stats["n_fetches"]}
+    got = {key: db16[key] for key in want}
+    if got != want:
+        raise AssertionError(f"doorbell/width16 counted {got}, the exact scan"
+                             f" batch of phase 5 {want}")
+    log(f"[7 throughput] {len(rows)} rows in {wall:.1f} s | doorbell/width16 "
+        f"counts what phase 5's scan batch counted {want} | launches "
+        f"{launches}")
+    return {"distance_topk": launches["distance_topk"]}
+
+
+def phase_int8_pairs(ds, meta, qstore, device, *, k: int, doorbell: int,
+                     gathers, n_batches: int = PAIR_BATCHES,
+                     recall_floor: float = 0.0) -> dict:
+    """Phase 8: int8 search through the per-pair stage 1
+    (``pairs_config``) in both search modes over the queries in
+    ``n_batches`` batches, so the tiers are reused.  Each mode runs with
+    the CUDA gather and is held against the same engine with the gather
+    off, in turns (an exact copy: gids, distances and counted stats
+    equal).  ``gathers`` maps each mode to ``pair_path_gathers``' result:
+    each batch must fetch the spans it planned, in one gather launch per
+    quantized buffer and round, so phase 4 checked and timed the launches
+    made here.  Returns the gather launches of the path."""
+    B, n = ds.queries.shape[0], ds.data.shape[0]
+    per = B // n_batches
+    launches = 0
+    for search_mode in ("scan", "graph"):
+        def make(gather, search_mode=search_mode):
+            cfg = pairs_config(meta.n_partitions, doorbell, search_mode,
+                               gather)
+            return DHNSWEngine(cfg, device=device).adopt_built(
+                meta, dataclasses.replace(qstore), ds.data)
+        outs = _in_turns(make, (False, True), ds.queries, k, device,
+                         n_batches=n_batches)
+        on, off = outs[True], outs[False]
+        recs = []
+        n_mode = 0
+        for i, ((d, g, st, _, n_on), (d0, g0, st0, _, n_off),
+                (round_ids, n_fetches)) in enumerate(zip(
+                    on["batches"], off["batches"], gathers[search_mode])):
+            what = f"int8 pairs {search_mode} batch {i}"
+            if n_off["gather_blocks"]:
+                raise AssertionError("gather_blocks launched with the gather "
+                                     "off")
+            if st["exact_admitted"]:
+                raise AssertionError(
+                    f"{what}: {st['exact_admitted']} spans admitted to the "
+                    "exact tier, whose reads phase 4 did not plan")
+            want = (len(PAIR_BUFS) * len(round_ids)
+                    if device.type == "cuda" else 0)
+            if n_on["gather_blocks"] != want or st["n_fetches"] != n_fetches:
+                raise AssertionError(
+                    f"{what}: {n_on['gather_blocks']} gather launches and "
+                    f"{st['n_fetches']} fetches, planned {want} and "
+                    f"{n_fetches}")
+            n_mode += n_on["gather_blocks"]
+            _check_output(d, g, per, k, n, what)
+            if not (np.array_equal(g, g0) and np.array_equal(d, d0)
+                    and _counted_equal(st, st0)):
+                raise AssertionError(f"{what}: gather kernel on/off results "
+                                     "differ")
+            if "stage1_impl" in st or "quant_kernel" in st:
+                raise AssertionError("the per-pair route names a stage 1")
+            recs.append(recall_at_k(g, ds.gt_ids[i * per:(i + 1) * per, :k]))
+            log(f"[8 int8 pairs {search_mode}] batch {i} of {per}: "
+                f"{_counted(st)} | rerank_rows={st['rerank_rows']} "
+                f"hit_rows={st['rerank_hit_rows']} admitted="
+                f"{st['exact_admitted']} | gather launches "
+                f"{n_on['gather_blocks']} | wall s gather on "
+                f"{[w[i] for w in on['walls']]}, off "
+                f"{[w[i] for w in off['walls']]} (off, on, on, off) | host "
+                f"split (on, first run): {_host_split(st)}")
+        rec = float(np.mean(recs))
+        if rec < recall_floor:
+            raise AssertionError(f"int8 pairs {search_mode}: recall@{k} {rec}")
+        launches += n_mode
+        log(f"[8 int8 pairs {search_mode}] recall@{k}={rec:.4f} over "
+            f"{n_batches} batches | gather launches {n_mode} | wall s of the "
+            f"{n_batches} batches gather on "
+            f"{[sum(w) for w in on['walls']]}, off "
+            f"{[sum(w) for w in off['walls']]} | equal to gather off")
+    return {"gather_blocks": launches}
 
 
 def main() -> int:
@@ -495,13 +769,29 @@ def main() -> int:
                                           FULL["n_rep"])
     gathers = main_path_gathers(meta, store, ds.queries, device,
                                 doorbell=FULL["doorbell"])
-    records = phase_kernels(store, qstore, ds.queries, gathers[0], device)
-    launches = phase_exact(ds, meta, store, device, k=FULL["k"],
-                           doorbell=FULL["doorbell"], gathers=gathers,
-                           recall_floor=RECALL_FLOOR)
+    pair_gathers = {mode: pair_path_gathers(
+        meta, qstore, ds.queries, device, doorbell=FULL["doorbell"],
+        search_mode=mode, n_batches=PAIR_BATCHES) for mode in ("scan", "graph")}
+    planned = gather_launches(gathers, pair_gathers)
+    records = phase_kernels(store, qstore, ds.data, ds.queries, planned,
+                            device)
+    launches, scan_stats = phase_exact(
+        ds, meta, store, device, k=FULL["k"], doorbell=FULL["doorbell"],
+        gathers=gathers, recall_floor=RECALL_FLOOR)
     launches.update(phase_int8(ds, meta, qstore, device, k=FULL["k"],
                                doorbell=FULL["doorbell"],
                                recall_floor=RECALL_FLOOR))
+    launches.update(phase_throughput(
+        ds, meta, store, device, preset=torch_common.PRESETS["full"],
+        scan_stats=scan_stats))
+    pairs = phase_int8_pairs(ds, meta, qstore, device, k=FULL["k"],
+                             doorbell=FULL["doorbell"], gathers=pair_gathers,
+                             n_batches=PAIR_BATCHES,
+                             recall_floor=RECALL_FLOOR)
+    launches["gather_blocks"] += pairs["gather_blocks"]
+    if launches["gather_blocks"] != len(planned):
+        raise AssertionError(f"{launches['gather_blocks']} gather launches on "
+                             f"the main path, {len(planned)} planned")
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] <= 0:

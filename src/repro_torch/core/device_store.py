@@ -1,10 +1,11 @@
 """Device-side store in torch: fetched-span decode + per-partition search.
 
-Port of the exact half of ``repro/core/device_store.py`` plus the pieces
-the int8 flat route needs (row gathers and the stage-2 re-rank).  A fetch
-span is ``(fetch_blocks, gblk)`` int32 + ``(fetch_blocks, vblk)`` float32;
-every function here takes a leading batch of spans/pairs where the
-reference ``vmap``s one.
+Port of ``repro/core/device_store.py`` except the overflow-append twins
+(``overflow_append``, ``overflow_append_quant``), which come with insert.
+A fetch span is ``(fetch_blocks, gblk)`` int32 + ``(fetch_blocks, vblk)``
+float32 (or int8 codes + ``(fetch_blocks, n_qgroups)`` f32 scales for the
+quantized tier); every function here takes a leading batch of spans/pairs
+where the reference ``vmap``s one.
 
 Kept from the reference on purpose:
 * padding pairs carry query index ``B``; JAX clamps that gather, torch
@@ -14,8 +15,8 @@ Kept from the reference on purpose:
 * the serve paths compute ``sum((v - q)^2)``; negative row addresses are
   clamped to 0 before gathers (``maximum(rows, 0)``).
 
-``write_slots`` updates the cache tensors in place (the reference returns
-new arrays and donates the old ones).
+``write_slots`` and ``write_slots_quant`` update the cache tensors in
+place (the reference returns new arrays and donates the old ones).
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import search as S
-from repro_torch.core.layout import (LayoutSpec, MT_ENTRY, MT_N_BASE,
-                                     MT_OV_A, MT_OV_B, MT_SIDE)
+from repro_torch.core.layout import (LayoutSpec, MT_BLK_START, MT_ENTRY,
+                                     MT_N_BASE, MT_OV_A, MT_OV_B, MT_SIDE)
 
 # pairs decoded at once in serve_and_merge: bounds the (pairs, rows, D)
 # temporaries of a large round (~1 MB of f32 vectors per pair at the
@@ -50,12 +51,17 @@ def _slice_rows(flat, start, length: int):
 def decode_span(spec: LayoutSpec, g_span, v_span, meta_row) -> DecodedPartition:
     """g_span (n, fetch_blocks, gblk) i32; v_span (n, fetch_blocks, vblk)
     f32; meta_row (n, META_COLS) -> the n decoded partitions."""
+    # vblk = slot_vecs * dim, so every vector offset is whole rows
+    return _decode(spec, g_span, v_span.reshape(g_span.shape[0], -1,
+                                                spec.dim), meta_row)
+
+
+def _decode(spec: LayoutSpec, g_span, vrows, meta_row) -> DecodedPartition:
+    """``decode_span`` on the span's vectors as (n, rows, D) f32."""
     n = g_span.shape[0]
     side = meta_row[:, MT_SIDE].long()
     n_base = meta_row[:, MT_N_BASE]
     gflat = g_span.reshape(n, -1)
-    # vblk = slot_vecs * dim, so every vector offset is whole rows
-    vrows = v_span.reshape(n, -1, spec.dim)
     dev = g_span.device
 
     data_g = _slice_rows(gflat, side * spec.ov_blocks * spec.gblk,
@@ -154,19 +160,147 @@ def merge_ranked(run_d, run_g, pair_qi, pair_ranks, d, g, *, n_lanes: int):
     ``(B+1, n_lanes, k)`` buffer (row B is the dump row for padding pairs),
     then take each query's new top-k with one stable argsort.  Equivalent
     to folding the pairs through sequential stable merges."""
-    B, k = run_d.shape
-    buf_d = run_d.new_full((B + 1, n_lanes, k), S.INF)
-    buf_g = run_g.new_full((B + 1, n_lanes, k), -1)
+    nd, ng = merge_ranked_payload(run_d, run_g[..., None], pair_qi,
+                                  pair_ranks, d, g[..., None],
+                                  n_lanes=n_lanes)
+    return nd, ng[..., 0]
+
+
+def merge_ranked_payload(run_d, run_p, pair_qi, pair_ranks, d, p, *,
+                         n_lanes: int):
+    """``merge_ranked`` with a (..., P) int payload instead of one id
+    column: the same (B+1, n_lanes, m) scatter and one stable argsort per
+    query, so round grouping never changes the merged result.
+    run_d (B, m), run_p (B, m, P); d (n_pairs, m), p (n_pairs, m, P)."""
+    B, m = run_d.shape
+    P = run_p.shape[2]
+    buf_d = run_d.new_full((B + 1, n_lanes, m), S.INF)
+    buf_p = run_p.new_full((B + 1, n_lanes, m, P), -1)
     qi, rk = pair_qi.long(), pair_ranks.long()
     buf_d[qi, rk] = d.to(run_d.dtype)
-    buf_g[qi, rk] = g.to(run_g.dtype)
-    all_d = torch.cat([run_d, buf_d[:B].reshape(B, n_lanes * k)], dim=1)
-    all_g = torch.cat([run_g, buf_g[:B].reshape(B, n_lanes * k)], dim=1)
-    order = torch.argsort(all_d, dim=1, stable=True)[:, :k]
-    return all_d.gather(1, order), all_g.gather(1, order)
+    buf_p[qi, rk] = p.to(run_p.dtype)
+    all_d = torch.cat([run_d, buf_d[:B].reshape(B, n_lanes * m)], dim=1)
+    all_p = torch.cat([run_p, buf_p[:B].reshape(B, n_lanes * m, P)], dim=1)
+    order = torch.argsort(all_d, dim=1, stable=True)[:, :m]
+    return all_d.gather(1, order), all_p.gather(
+        1, order[:, :, None].expand(-1, -1, P))
 
 
-# ------------------------------------------------------- int8 flat route
+# ------------------------------------------------------------ quantized tier
+#
+# The staged (quant=int8) search: stage 1 decodes QUANTIZED spans resident
+# in the large quantized tier into the same DecodedPartition view
+# (dequantize = one multiply) and pools per-query candidates (distance,
+# gid, exact-row address, pid); stage 2 gathers only the candidate rows in
+# full precision and re-ranks to the final top-k.
+
+def decode_quant_span(spec: LayoutSpec, g_span, qv_span, qs_span, meta_row):
+    """Quantized twin of ``decode_span``.
+
+    g_span (n, fetch_blocks, gblk) i32; qv_span (n, fetch_blocks, vblk)
+    int8; qs_span (n, fetch_blocks, n_qgroups) f32; meta_row (n,
+    META_COLS).  Returns (DecodedPartition with dequantized f32 vectors,
+    rows (n, np_max + ov_cap) i32): ``rows`` are exact-row addresses into
+    ``vec_buf.reshape(-1, dim)``, what stage 2 fetches for re-ranking."""
+    n = g_span.shape[0]
+    g = spec.quant_group
+    # the whole span dequantized as the reference dequantizes each slice:
+    # codes.reshape(-1, g) * scales[:, None] in f32
+    codes = qv_span.reshape(n, -1, g).to(torch.float32)
+    vrows = (codes * qs_span.reshape(n, -1)[:, :, None]).reshape(
+        n, -1, spec.dim)
+    part = _decode(spec, g_span, vrows, meta_row)
+    # exact-row addresses: vblk = slot_vecs * dim, so row r of the region
+    # lives at flat row index block * slot_vecs + local offset
+    side = meta_row[:, MT_SIDE]
+    blk_start = meta_row[:, MT_BLK_START]
+    data_row0 = (blk_start + side * spec.ov_blocks) * spec.slot_vecs
+    ov_row0 = (blk_start + (1 - side) * spec.data_blocks) * spec.slot_vecs
+    dev = g_span.device
+    rows = torch.cat([
+        data_row0[:, None] + torch.arange(spec.np_max, device=dev),
+        ov_row0[:, None] + torch.arange(spec.ov_cap, device=dev)],
+        dim=1).to(torch.int32)
+    return part, rows
+
+
+def _pad_topk(d, i, k: int):
+    """Pad (n, kk) top lists to (n, k) with inf/-1 when kk < k."""
+    kk = d.shape[1]
+    if kk >= k:
+        return d[:, :k], i[:, :k]
+    pad = k - kk
+    return (torch.cat([d, d.new_full((d.shape[0], pad), S.INF)], 1),
+            torch.cat([i, i.new_full((i.shape[0], pad), -1)], 1))
+
+
+def search_decoded_scan_local(part: DecodedPartition, q, k: int):
+    """Like ``search_decoded_scan`` but returns LOCAL indices (int32; the
+    candidate pool needs them to derive exact-row addresses)."""
+    n = part.vectors.shape[1]
+    d = (part.vectors - q[:, None, :]).square().sum(-1)
+    d = torch.where(part.valid, d, S.INF)
+    nd, ni = S.topk_smallest(d, min(k, n))
+    return _pad_topk(nd, ni.to(torch.int32), k)
+
+
+def search_decoded_graph_local(part: DecodedPartition, q, k: int, ef: int):
+    """Like ``search_decoded_graph`` but returns LOCAL indices (int32):
+    each lane's beam walk over its base graph + a brute scan of its live
+    overflow slice."""
+    np_max = part.adjacency.shape[2]
+    bd, bi = S.batched_beam_search(part.vectors[:, :np_max], part.adjacency,
+                                   q, part.entry, ef=max(ef, k), n_levels=1)
+    bd = torch.where((bi >= 0) & part.valid.gather(1, bi.clamp(min=0)), bd,
+                     S.INF)
+    ov_d = (part.vectors[:, np_max:] - q[:, None, :]).square().sum(-1)
+    ov_d = torch.where(part.valid[:, np_max:], ov_d, S.INF)
+    all_d = torch.cat([bd, ov_d], dim=1)
+    ov_i = np_max + torch.arange(ov_d.shape[1], dtype=torch.int32,
+                                 device=q.device)
+    all_i = torch.cat([bi.to(torch.int32),
+                       ov_i.expand(q.shape[0], -1)], dim=1)
+    nd, pos = S.topk_smallest(all_d, min(k, all_d.shape[1]))
+    return _pad_topk(nd, all_i.gather(1, pos), k)
+
+
+def serve_quant_pool(spec: LayoutSpec, cache_qg, cache_qv, cache_qs,
+                     meta_table, queries, pool_d, pool_p, pair_qi, pair_pids,
+                     pair_slots, pair_ranks, pair_valid, *, m: int, ef: int,
+                     mode: str, n_lanes: int):
+    """Stage-1 round: per-pair top-m inside the pair's QUANTIZED partition,
+    then one scatter-merge into the batch's running candidate pool.
+    ``pool_d`` (B, m) distances; ``pool_p`` (B, m, 3) int32 payload columns
+    [gid, exact_row, pid] carried through the merge.  Pairs are decoded
+    ``PAIR_CHUNK`` at a time, as in ``serve_and_merge``.  Returns the
+    updated (pool_d, pool_p)."""
+    B = queries.shape[0]
+    ds, ps = [], []
+    for c0 in range(0, pair_qi.shape[0], PAIR_CHUNK):
+        sl = slice(c0, c0 + PAIR_CHUNK)
+        slots = pair_slots[sl].long()
+        pids = pair_pids[sl]
+        qs = queries[pair_qi[sl].long().clamp(max=B - 1)]
+        part, rows = decode_quant_span(spec, cache_qg[slots], cache_qv[slots],
+                                       cache_qs[slots],
+                                       meta_table[pids.long()])
+        if mode == "graph":
+            d, li = search_decoded_graph_local(part, qs, m, ef)
+        else:
+            d, li = search_decoded_scan_local(part, qs, m)
+        live = (li >= 0) & pair_valid[sl][:, None] & torch.isfinite(d)
+        safe = li.long().clamp(min=0)
+        payload = torch.stack([part.gids.gather(1, safe),
+                               rows.gather(1, safe),
+                               pids[:, None].expand_as(li)],
+                              dim=-1).to(torch.int32)
+        ds.append(torch.where(live, d, S.INF))
+        ps.append(torch.where(live[:, :, None], payload, -1))
+    return merge_ranked_payload(pool_d, pool_p, pair_qi, pair_ranks,
+                                torch.cat(ds), torch.cat(ps), n_lanes=n_lanes)
+
+
+# ------------------------------------------------ rows and cache slots
 
 def gather_rows(vec_buf, rows, *, dim: int):
     """The pool's row-granular READ: exact vector rows by region row
@@ -203,3 +337,13 @@ def write_slots(spec: LayoutSpec, cache_g, cache_v, slot_ids, g_blocks,
     cache_g[slots] = g_blocks
     cache_v[slots] = v_blocks
     return cache_g, cache_v
+
+
+def write_slots_quant(spec: LayoutSpec, cache_qg, cache_qv, cache_qs,
+                      slot_ids, g_blocks, qv_blocks, qs_blocks):
+    """Install fetched QUANTIZED spans into quant-tier slots, in place."""
+    slots = slot_ids.long()
+    cache_qg[slots] = g_blocks
+    cache_qv[slots] = qv_blocks
+    cache_qs[slots] = qs_blocks
+    return cache_qg, cache_qv, cache_qs

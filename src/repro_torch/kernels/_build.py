@@ -3,10 +3,12 @@
 Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 (one ``nvcc -c`` per source, all started together) and linked into ONE
 shared library with a plain C interface under ``build/repro_torch/`` at
-the repository root.  The file name carries a hash of the sources and
-flags, so a stale build is never loaded.  The build runs at first use
-(``library()``), never at import: the CPU tests import every module on
-machines without ``nvcc``.
+the repository root.  Headers they share (``kernels/csrc/*.cuh``) are
+included, not compiled.  The file name carries a hash of the flags and
+of every ``.cu`` and ``.cuh`` under the kernels, so a stale build (after
+an edit to a source or to a header) is never loaded.  The build runs at
+first use (``library()``), never at import: the CPU tests import every
+module on machines without ``nvcc``.
 
 Each C entry point takes device pointers as ``void*``, ints, and the
 stream from ``torch.cuda.current_stream().cuda_stream``, and returns
@@ -37,15 +39,25 @@ SIGNATURES = {
     # B, D, group, n_valid, k, n_chunks, stream
     "quant_topk_launch": [_P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
+    # q, x, part_d, part_i, out_d, out_i, B, D, n_valid, k, n_chunks, stream
+    "distance_topk_launch": [_P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
 
 
-def sources() -> list[Path]:
+def sources(kernels_dir: Path = KERNELS_DIR) -> list[Path]:
     """Every CUDA source the library is built from, in a fixed order."""
-    return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
+    return sorted(kernels_dir.glob("*/csrc/*.cu"))
+
+
+def hashed_files(kernels_dir: Path = KERNELS_DIR) -> list[Path]:
+    """Every file the library depends on: the sources and the headers
+    they include, in a fixed order."""
+    return sorted(p for p in kernels_dir.rglob("*")
+                  if p.suffix in (".cu", ".cuh"))
 
 
 def _nvcc() -> str:
@@ -57,11 +69,12 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(kernels_dir: Path = KERNELS_DIR) -> Path:
+    """Where the library for the current sources and headers lives (built
+    or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
+    for src in hashed_files(kernels_dir):
+        h.update(src.relative_to(kernels_dir).as_posix().encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 

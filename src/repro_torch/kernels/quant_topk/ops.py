@@ -48,18 +48,24 @@ def _check(queries, codes, scales, k: int, group: int):
         raise ValueError(f"k must be >= 1, got {k}")
 
 
-def _plain(queries, codes, scales, k: int, group: int, n_valid: int):
-    """The plain version with the kernel's contract (k may exceed N)."""
-    B, N = queries.shape[0], codes.shape[0]
-    kk = min(k, N)
-    d, i = quant_topk_ref(queries, codes, scales, kk, group, n_valid)
+def to_contract(d, i, k: int):
+    """A plain top-list in the kernels' contract: inf/-1 at every entry
+    that is not finite, padded with inf/-1 to ``k`` columns."""
     bad = ~torch.isfinite(d)
     d = torch.where(bad, torch.inf, d)
     i = torch.where(bad, -1, i)
-    if kk < k:
-        d = torch.cat([d, d.new_full((B, k - kk), torch.inf)], 1)
-        i = torch.cat([i, i.new_full((B, k - kk), -1)], 1)
+    pad = k - d.shape[1]
+    if pad > 0:
+        d = torch.cat([d, d.new_full((d.shape[0], pad), torch.inf)], 1)
+        i = torch.cat([i, i.new_full((i.shape[0], pad), -1)], 1)
     return d, i
+
+
+def _plain(queries, codes, scales, k: int, group: int, n_valid: int):
+    """The plain version with the kernel's contract (k may exceed N)."""
+    kk = min(k, codes.shape[0])
+    return to_contract(*quant_topk_ref(queries, codes, scales, kk, group,
+                                       n_valid), k)
 
 
 def _launch(queries, codes, scales, k: int, group: int, n_valid: int,

@@ -1,22 +1,22 @@
 """ComputeClient — the compute-pool node of the disaggregated system.
 
-Port of ``repro/pool/compute.py`` for this slice.  It owns what the paper
-lets a compute instance hold: the cached representative meta-HNSW, the
-resident-partition cache tiers, the round scheduler, and the device
-serve path.  Every byte of index data it touches arrives through a
-``MemoryPool`` verb.
+Port of ``repro/pool/compute.py``.  It owns what the paper lets a compute
+instance hold: the cached representative meta-HNSW, the resident-partition
+cache tiers, the round scheduler, and the device serve path.  Every byte
+of index data it touches arrives through a ``MemoryPool`` verb.
 
-In this slice: ``build`` / ``adopt_built``, exact search
-(``quant="none"``, both search modes, all three schemes), and the int8
-staged search when its stage 1 is the dense-resident flat scan
-(``quant_kernel`` "auto" or "ref", ``search_mode="scan"``, a quantized
-tier that holds every partition).  Stage 1 then runs the
-``kernels/quant_topk`` CUDA kernel on the card ("auto") or its plain
-torch version ("ref", and every tensor on the CPU).
+In this port so far: ``build`` / ``adopt_built``, exact search
+(``quant="none"``, both search modes, all three schemes) and the int8
+staged search in every configuration.  Its stage 1 is routed as the
+reference routes it: the dense-resident flat scan (``quant_kernel``
+"auto" or "ref", ``search_mode="scan"``, a quantized tier that holds
+every partition) runs ``kernels/quant_topk`` — the CUDA kernel on the
+card ("auto") or its plain torch version ("ref", and every tensor on the
+CPU); every other int8 configuration runs the per-pair stage 1 over the
+quantized tier's device slots (``_stage1_pairs``).
 
-Not in this slice: the per-pair int8 stage 1 (``_stage1_pairs``, ROADMAP
-"Modules to port" item 4) and ``insert`` (item 5).  Both raise
-``NotImplementedError``; neither silently takes another route.
+Not in this port yet: ``insert`` (ROADMAP "Modules to port" item 5),
+which raises ``NotImplementedError``.
 
 Device tensors use the reference's dtypes: with JAX's default x32, gids,
 pids and payloads are int32 until the results are cast to int64 at the
@@ -125,12 +125,11 @@ class ComputeClient:
         self._flat_synced = False
 
     def _setup_quant(self, cap: int):
-        """Attach the int8 mirror and size the two tiers from the SAME byte
-        budget a quant="none" engine would spend on ``cap`` full-precision
-        slots: a small exact tier (``exact_frac`` of the budget) plus a
-        quantized tier filling the remainder.  Only the exact tier holds
-        device slots here: the flat route keeps its own dense view and the
-        per-pair route (which fills quantized slots) is not in this slice."""
+        """Attach the int8 mirror and size the two device tiers from the
+        SAME byte budget a quant="none" engine would spend on ``cap``
+        full-precision slots: a small exact tier (``exact_frac`` of the
+        budget) plus a quantized tier filling the remainder (~3-4x the
+        partitions per byte)."""
         cfg = self.cfg
         st = self.pool.store
         if (st.qvec_buf is not None
@@ -149,6 +148,16 @@ class ComputeClient:
         self._cache_g = self._span_cache(exact_cap, torch.int32, spec.gblk, -1)
         self._cache_v = self._span_cache(exact_cap, torch.float32, spec.vblk,
                                          0)
+        self._cache_qg, self._cache_qv, self._cache_qs = self._quant_slots(
+            quant_cap)
+
+    def _quant_slots(self, cap: int):
+        """Empty quantized-tier slots: graph blocks, int8 codes and the
+        codebook scales of ``cap`` spans."""
+        spec = self.pool.spec
+        return (self._span_cache(cap, torch.int32, spec.gblk, -1),
+                self._span_cache(cap, torch.int8, spec.vblk, 0),
+                self._span_cache(cap, torch.float32, spec.n_qgroups, 0))
 
     # ------------------------------------------------------------ search
 
@@ -271,6 +280,8 @@ class ComputeClient:
         pool = self.pool
         spec = pool.spec
         pb = spec.partition_bytes()
+        qpb = spec.quant_partition_bytes(
+            include_graph=cfg.search_mode == "graph")
         row_b = spec.row_bytes()
         m = max(int(cfg.rerank_m) or 2 * k, k)
         queries = np.ascontiguousarray(queries, np.float32)
@@ -281,16 +292,19 @@ class ComputeClient:
                  "n_rounds": 0, "n_pairs": 0, "quant": cfg.quant,
                  "rerank_m": m}
 
-        if not self._flat_kernel_active():
-            raise NotImplementedError(
-                "int8 search whose quantized tier is not dense-resident (or "
-                "quant_kernel='off', or search_mode='graph') needs the "
-                "per-pair stage 1 (_stage1_pairs + serve_quant_pool), which "
-                "is ported in ROADMAP 'Modules to port' item 4")
-        pool_d, pool_p, plan = self._stage1_flat(q_dev, B, m, ledger, stats)
-        tiers = self.tiers
+        if self._flat_kernel_active():
+            pool_d, pool_p, plan = self._stage1_flat(q_dev, B, m, ledger,
+                                                     stats)
+            tiers = self.tiers
+        else:
+            pool_d, pool_p, plan, tiers = self._stage1_pairs(
+                q_dev, B, m, ef, b, qpb, pb, ledger, stats)
 
         # stage-2 accounting: pool payload -> row fetch plan
+        t0 = time.perf_counter()
+        if pool_p.is_cuda:
+            torch.cuda.synchronize(pool_p.device)
+        stats["sub_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         pool_h = pool_p.cpu().numpy()
         live = pool_h[:, :, 1] >= 0
@@ -356,6 +370,94 @@ class ComputeClient:
         stats["n_fetches"] = plan["n_fetches"]
         stats["pool"] = pool.snapshot()
         return run_d, run_g, stats
+
+    def _stage1_pairs(self, q_dev, B: int, m: int, ef: int, b: int,
+                      qpb: int, pb: int, ledger, stats):
+        """Per-pair stage 1: plan against the quantized tier with the round
+        machinery and pool per-query top-m candidates through one
+        scatter-merge per round (``serve_quant_pool``)."""
+        cfg = self.cfg
+        pool = self.pool
+        spec = pool.spec
+        include_graph = cfg.search_mode == "graph"
+
+        t0 = time.perf_counter()
+        pids = self._route(q_dev, b)
+        stats["meta_s"] = time.perf_counter() - t0
+        TRACER.add("compute.route", "compute", t0, stats["meta_s"], B=B)
+
+        # stage-1 plan against the quantized tier.  A quantized span read
+        # moves the codes + codebook (and, in graph mode, the adjacency
+        # blocks): 2 descriptors per span
+        t0 = time.perf_counter()
+        if cfg.mode == "naive":
+            raw = SCH.naive_plan(pids)
+            pool.post_span_reads(len(raw), ledger=ledger, doorbell=1,
+                                 quant=True, quant_graph=include_graph,
+                                 pids=[p for _, p in raw])
+            ledger.save(len(raw) * (pb - qpb))
+            uniq = sorted({p for _, p in raw})
+            tiers = SCH.TieredCacheState(max(len(uniq), 1), 1)
+            plan = SCH.plan_batch(pids, tiers.quant, doorbell=1)
+        else:
+            tiers = self.tiers
+            plan = SCH.plan_batch(pids, tiers.quant, doorbell=cfg.doorbell)
+        stats["plan_s"] = time.perf_counter() - t0
+        TRACER.add("compute.plan", "compute", t0, stats["plan_s"],
+                   rounds=len(plan.rounds), fetches=plan.n_fetches,
+                   hits=plan.n_cache_hits)
+
+        # stage-1 rounds: fetch quantized spans -> pool candidates
+        mt_dev = pool.read_meta()
+        pool_d = torch.full((B, m), torch.inf, dtype=torch.float32,
+                            device=self.device)
+        pool_p = torch.full((B, m, 3), -1, dtype=torch.int32,
+                            device=self.device)
+        if cfg.mode == "naive":
+            slots_q = self._quant_slots(tiers.quant.capacity)
+            fetch_ledger = None
+            fetch_doorbell = 1
+        else:
+            slots_q = (self._cache_qg, self._cache_qv, self._cache_qs)
+            fetch_ledger = ledger
+            fetch_doorbell = 1 if cfg.mode == "no_doorbell" else cfg.doorbell
+
+        for rnd in plan.rounds:
+            stats["n_rounds"] += 1
+            with TRACER.span("compute.round", tier="compute",
+                             fetch=int(len(rnd.fetch_pids)),
+                             pairs=int(len(rnd.serve_pairs))):
+                if len(rnd.fetch_pids):
+                    with TRACER.span("compute.fetch", tier="compute",
+                                     spans=int(len(rnd.fetch_pids)),
+                                     quant=True):
+                        blocks = pool.read_spans(
+                            rnd.fetch_pids, ledger=fetch_ledger,
+                            doorbell=fetch_doorbell, quant=True,
+                            quant_graph=include_graph)
+                        if fetch_ledger is not None:
+                            ledger.save(len(rnd.fetch_pids) * (pb - qpb))
+                        DS.write_slots_quant(spec, *slots_q,
+                                             self._t(rnd.fetch_slots),
+                                             *blocks)
+                if not len(rnd.serve_pairs):
+                    continue
+                t0 = time.perf_counter()
+                n = len(rnd.serve_pairs)
+                qi, ppid, pslot, prank, valid = rnd.serve_tensors(
+                    pow2_pad(n), B)
+                pool_d, pool_p = DS.serve_quant_pool(
+                    spec, *slots_q, mt_dev, q_dev, pool_d, pool_p,
+                    self._t(qi), self._t(ppid), self._t(pslot),
+                    self._t(prank), self._t(valid), m=m, ef=max(ef, m),
+                    mode=cfg.search_mode, n_lanes=b)
+                dt = time.perf_counter() - t0
+                stats["sub_s"] += dt
+                TRACER.add("compute.serve", "compute", t0, dt, pairs=n,
+                           quant=True)
+                stats["n_pairs"] += n
+        return pool_d, pool_p, {"n_cache_hits": plan.n_cache_hits,
+                                "n_fetches": plan.n_fetches}, tiers
 
     # ------------------------------------------------ flat stage-1 (kernel)
 

@@ -39,6 +39,14 @@ CASES = [dict(mode=m, search_mode=s, b=4, cache_frac=0.25)
 CASES += [dict(mode="full", search_mode="scan", b=6, quant="int8",
                quant_kernel=qk, cache_frac=0.6, exact_frac=0.25, doorbell=16)
           for qk in ("auto", "ref")]
+# int8 through the per-pair stage 1: quant_kernel "off", and "auto" where
+# the quantized tier is not dense-resident (the reference routes it there)
+CASES += [dict(mode=m, search_mode=s, b=6, quant="int8", quant_kernel="off",
+               cache_frac=0.25, exact_frac=0.25, doorbell=16)
+          for m in ("naive", "no_doorbell", "full") for s in ("graph", "scan")]
+CASES += [dict(mode="full", search_mode="scan", b=6, quant="int8",
+               quant_kernel="auto", cache_frac=0.25, exact_frac=0.25,
+               doorbell=16)]
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +62,8 @@ def _port_state(built_engine):
 
 
 @pytest.mark.parametrize("kw", CASES, ids=lambda kw: "-".join(
-    str(kw.get(x, "")) for x in ("mode", "search_mode", "quant_kernel")))
+    str(kw.get(x, "")) for x in ("mode", "search_mode", "quant_kernel",
+                                 "cache_frac")))
 def test_search_matches_reference(jax_pkg, built_engine, sift_small, kw):
     ref = jax_pkg.DHNSWEngine(jax_pkg.EngineConfig(**BASE, **kw))
     ref.client.adopt_built(built_engine.meta,
@@ -70,10 +79,14 @@ def test_search_matches_reference(jax_pkg, built_engine, sift_small, kw):
         for key in STAT_KEYS:
             assert st[key] == sr[key], key
         if kw.get("quant") == "int8":
-            assert st["stage1_impl"] == "ref"
+            # the flat route names its stage 1; the per-pair route names
+            # none, in both packages
+            assert ("stage1_impl" in st) == ("stage1_impl" in sr)
+            if "stage1_impl" in sr:
+                assert st["stage1_impl"] == "ref"
             for key in ("rerank_rows", "rerank_hit_rows", "exact_admitted",
-                        "flat_rows"):
-                assert st[key] == sr[key], key
+                        "flat_rows", "quant_kernel"):
+                assert st.get(key) == sr.get(key), key
         assert gt.dtype == gr.dtype == np.int64
         assert dt.dtype == dr.dtype == np.float32
         ext_d = np.concatenate([dr, np.full((len(dr), 1), np.inf)], 1)
@@ -136,6 +149,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:\.|\s|$)",
 
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "benchmarks").glob("torch_*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -151,7 +165,9 @@ def test_cpu_search_loads_no_jax_and_no_reference():
         "ds = sift_like(n=600, n_queries=8, seed=1)\n"
         "for kw in (dict(search_mode='graph', use_gather_kernel=True),\n"
         "           dict(search_mode='scan', quant='int8',\n"
-        "                quant_kernel='auto', cache_frac=0.6)):\n"
+        "                quant_kernel='auto', cache_frac=0.6),\n"
+        "           dict(search_mode='graph', quant='int8',\n"
+        "                quant_kernel='off', cache_frac=0.25)):\n"
         "    e = DHNSWEngine(EngineConfig(n_rep=8, b=2, **kw),\n"
         "                    device='cpu').build(ds.data)\n"
         "    d, g, st = e.search(ds.queries, k=5)\n"
@@ -189,13 +205,6 @@ def test_paths_outside_the_slice_raise(built_engine, sift_small):
     for pool in ("sim_rdma", "sharded", "remote"):
         with pytest.raises(NotImplementedError):
             DHNSWEngine(EngineConfig(pool=pool, **BASE), device="cpu")
-    # int8 whose quantized tier is not dense-resident: per-pair stage 1
-    q8 = DHNSWEngine(EngineConfig(quant="int8", quant_kernel="auto",
-                                  search_mode="scan", cache_frac=0.1,
-                                  **BASE), device="cpu")
-    q8.adopt_built(meta, dataclasses.replace(store), sift_small.data)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        q8.search(sift_small.queries[:4], k=5)
 
 
 # ------------------------------------------------------------ chip_smoke
@@ -219,17 +228,36 @@ def test_chip_smoke_phases_on_cpu(chip_smoke):
     gathers = cs.main_path_gathers(meta, store, ds.queries, cpu, doorbell=16)
     assert gathers[0] and sum(len(i) for i in gathers[0]) == (
         gathers[1] * store.spec.fetch_blocks)
-    recs = cs.phase_kernels(store, qstore, ds.queries, gathers[0], cpu)
-    assert [r["name"] for r in recs] == ["gather_blocks", "quant_topk"]
+    pair_gathers = {mode: cs.pair_path_gathers(
+        meta, qstore, ds.queries, cpu, doorbell=16, search_mode=mode,
+        n_batches=4) for mode in ("scan", "graph")}
+    for batches in pair_gathers.values():
+        assert len(batches) == 4 and batches[0][0]
+        assert all(sum(len(i) for i in ids) == n * store.spec.fetch_blocks
+                   for ids, n in batches)
+    planned = cs.gather_launches(gathers, pair_gathers)
+    assert {b for b, _ in planned} == {"graph", "vec", "codes", "scales"}
+    assert len(planned) == 2 * 2 * len(gathers[0]) + 3 * sum(
+        len(ids) for batches in pair_gathers.values() for ids, _ in batches)
+    recs = cs.phase_kernels(store, qstore, ds.data, ds.queries, planned, cpu)
+    assert [r["name"] for r in recs] == ["gather_blocks", "quant_topk",
+                                         "distance_topk"]
     assert all(r["ms"] is None and r["bound_ms"] > 0 for r in recs)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(set(r) == keys for r in recs)
     assert all((ROOT / r["source"]).exists() for r in recs)
-    exact = cs.phase_exact(ds, meta, store, cpu, k=10, doorbell=16,
-                           gathers=gathers)
+    exact, scan_stats = cs.phase_exact(ds, meta, store, cpu, k=10,
+                                       doorbell=16, gathers=gathers)
     q8 = cs.phase_int8(ds, meta, qstore, cpu, k=10, doorbell=16)
+    tiny = dict(cs.torch_common.PRESETS["quick"], sift_n=1000, n_queries=32,
+                batch=32, n_rep=8)
+    tp = cs.phase_throughput(ds, meta, store, cpu, preset=tiny,
+                             scan_stats=scan_stats)
+    pairs = cs.phase_int8_pairs(ds, meta, qstore, cpu, k=10, doorbell=16,
+                                gathers=pair_gathers, n_batches=4)
     assert exact == {"gather_blocks": 0} and q8 == {"quant_topk": 0}
+    assert tp == {"distance_topk": 0} and pairs == {"gather_blocks": 0}
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

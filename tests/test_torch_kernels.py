@@ -208,6 +208,27 @@ def test_quant_topk_k_past_rows(rng):
     assert sorted(i[0, :5].tolist()) == list(range(5))
 
 
+def test_build_hash_covers_headers(tmp_path):
+    """The library's name hashes every source and every header, so an edit
+    to a shared ``.cuh`` never loads a stale build; only ``.cu`` files are
+    compiled."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    kernels = tmp_path / "kernels"
+    shutil.copytree(_build.KERNELS_DIR, kernels,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    headers = sorted(kernels.glob("csrc/*.cuh"))
+    assert headers, "no shared header found"
+    assert all(p.suffix == ".cu" for p in _build.sources(kernels))
+    assert set(headers) <= set(_build.hashed_files(kernels))
+    before = _build.library_path(kernels)
+    assert before == _build.library_path(kernels)
+    assert before.name == _build.library_path().name
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    assert _build.library_path(kernels) != before
+
+
 def test_ids_agree_up_to_ties():
     ref_d = np.array([[1.0, 2.0, 2.0, 3.0]])
     ref_i = np.array([[7, 8, 9, 10]])
