@@ -13,11 +13,12 @@ Phases, each printing its own lines:
    256 partitions (the paper's geometry, cut as ``reduced`` says);
 4. kernels against their plain torch versions on the card at the shapes
    the paths give them (for the gather, the ids of every launch of
-   phases 5 and 8, planned as the engine plans them; for
+   phases 5, 8 and 9, planned as the engine plans them; for
    ``distance_topk``, the throughput benchmark's B=128 x N=4096 and the
-   flat f32 twin of ``quant_topk``'s shape), with times (CUDA events)
-   beside the bound, the plain version's time and the library call's
-   time;
+   flat f32 twin of ``quant_topk``'s shape; for ``decode_attention``,
+   phase 9's first decode call and a long-context shape), with times
+   (CUDA events) beside the bound, the plain version's time and the
+   library call's time;
 5. exact search (``mode="full"``, b=4, ef=48, doorbell 16, RDMA fabric,
    the CUDA doorbell gather) for ``search_mode`` graph and scan, one batch
    of 2000 at k=10, held against the same engine with the gather off;
@@ -31,7 +32,22 @@ Phases, each printing its own lines:
    torch_quant.py``'s per-pair cell: ``quant_kernel="off"``,
    ``cache_frac`` 0.25, ``exact_frac`` 0.25, b=6, doorbell 16) in both
    search modes, 2000 queries in 4 batches, with the CUDA gather, held
-   against the same engine with the gather off (in turns).
+   against the same engine with the gather off (in turns);
+9. RAG serving at full width: ``RagServeEngine`` with ``qwen3-8b`` (36
+   layers, d 4096, 32 query heads over 8 kv heads, vocab 151936; weights
+   from a seeded generator on the card) over phase 5's exact-scan engine
+   with the CUDA gather, whose 100k vectors are the documents' embeddings
+   (240 tokens each): two ``serve`` calls of the same 8 prompts of 64
+   tokens (prefill at S = 4 * 240 + 64 = 1024 through the flash path, 32
+   greedy decode steps, every layer's decode attention through the CUDA
+   ``decode_attention``), equal tokens from both; then a third call
+   under ``torch.profiler``: the device's busy share over its decode
+   loop.
+
+Phase 4 runs last: the gather's launches include phase 9's retrieval,
+planned from the engine's embedding of the prompts, and
+``decode_attention`` is held at the inputs of phase 9's first decode
+call (captured there) and at a long-context shape (B=16, S=32768).
 
 Every kernel's launch counter is set to 0 just before each path is
 driven and read just after.  The last lines are the kernels' JSON record
@@ -66,7 +82,11 @@ from repro_torch.core import search as S  # noqa: E402
 from repro_torch.core.cost_model import RDMA_100G  # noqa: E402
 from repro_torch.core.hnsw import HNSWParams, recall_at_k  # noqa: E402
 from repro_torch.data.synthetic import sift_like  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as DA  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref)
 from repro_torch.kernels.distance_topk import ops as DO  # noqa: E402
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref  # noqa: E402
 from repro_torch.kernels.gather_blocks import ops as GO  # noqa: E402
@@ -74,6 +94,9 @@ from repro_torch.kernels.gather_blocks.ref import gather_blocks_ref  # noqa: E40
 from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
     ids_agree_up_to_ties, quant_topk_ref)
+from repro_torch.models import layers as LY  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    DECODE_SPAN, DocStore, RagServeEngine)
 
 # H100 SXM published peaks (NVIDIA datasheet), at 700 W
 PEAK_BYTES_S = 3.35e12
@@ -83,12 +106,27 @@ PEAK_F32_FLOPS_S = 67e12
 # index build (pure-Python HNSW, phase 3) takes 44-72 s at 100k on the
 # card's host, so both are cut
 REDUCED = {"n": [1_000_000, 100_000], "n_rep": [500, 256],
-           "why": "host-side index build time (pure-Python HNSW)"}
+           "why": "host-side index build time (pure-Python HNSW)",
+           "decode_32k_batch": [128, 16],
+           "decode_32k_why": "decode_attention's long-context check holds "
+                             "one layer's K/V and the plain version's f32 "
+                             "copies of them on the card"}
 FULL = dict(n=100_000, n_queries=2000, n_rep=256, k=10, doorbell=16)
 SEED = 0
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-3
 RECALL_FLOOR = 0.8           # sanity floor for recall@10 at full size
 PAIR_BATCHES = 4             # phase 8's batches, so the tiers are reused
+# phase 9: qwen3-8b at full width and depth over the 100k index
+RAG_ARCH = "qwen3-8b"
+RAG = dict(doc_len=240, prompt_len=64, batch=8, max_new_tokens=32,
+           docs_per_query=4, n_calls=2)
+DECODE_LONG = dict(B=16, S=32768)   # decode_32k's length, batch cut to 16
+# decode_attention vs its plain version: in bf16 within a few bf16 steps
+# of the largest output (both sides round the same f32 result once, so
+# they differ by at most one step of each element); in f32 at the gpu
+# tests' tolerance
+BF16_STEPS = 2.0 ** -6
+F32_TOL = dict(atol=2e-5, rtol=1e-4)
 
 
 def log(*a) -> None:
@@ -268,21 +306,45 @@ def pair_path_gathers(meta, qstore, queries, device, *, doorbell: int,
     return out
 
 
+def rag_path_gathers(meta, store, queries, device, *, doorbell: int,
+                     n_calls: int) -> list:
+    """The block ids of every span read of phase 9's retrieval: ``n_calls``
+    searches of the same embedded prompts on phase 5's exact-scan engine,
+    each fused by the micro-batcher into one batch (padded to a power of
+    two with copies of row 0, as ``MicroBatcher`` pads it) and planned as
+    ``ComputeClient.search`` plans it, the cache carrying from call to
+    call.  Returns, per call, (ids per round, fetched spans)."""
+    cfg = exact_config(meta.n_partitions, doorbell)
+    cap = max(2, int(np.ceil(cfg.cache_frac * meta.n_partitions)))
+    cache = SCH.LRUCacheState(cap)
+    pad = SCH.pow2_pad(len(queries), lo=1) - len(queries)
+    fused = np.concatenate([queries, np.repeat(queries[:1], pad, axis=0)])
+    out = []
+    for _ in range(n_calls):
+        plan = SCH.plan_batch(_route(meta, fused, device, cfg.b), cache,
+                              doorbell=cfg.doorbell)
+        out.append((_round_ids(plan, store, device), plan.n_fetches))
+    return out
+
+
 # the staged buffers each path's read_spans gathers from, in its order
 EXACT_BUFS = ("graph", "vec")
 PAIR_BUFS = ("graph", "codes", "scales")
 
 
-def gather_launches(exact_gathers, pair_gathers) -> list:
+def gather_launches(exact_gathers, pair_gathers, rag_gathers=()) -> list:
     """Every gather launch of the main path, as (buffer, ids): phase 5's
     counted batch in each search mode (graph, then scan), then phase 8's
     counted run in each search mode (``pair_gathers``: mode -> the
-    result of ``pair_path_gathers``)."""
+    result of ``pair_path_gathers``), then phase 9's retrieval
+    (``rag_path_gathers``' result)."""
     out = [(buf, ids) for _ in ("graph", "scan")
            for ids in exact_gathers[0] for buf in EXACT_BUFS]
     for batches in pair_gathers.values():
         out += [(buf, ids) for round_ids, _ in batches
                 for ids in round_ids for buf in PAIR_BUFS]
+    out += [(buf, ids) for round_ids, _ in rag_gathers
+            for ids in round_ids for buf in EXACT_BUFS]
     return out
 
 
@@ -339,7 +401,7 @@ def _gather_record(bufs, launches, device, timed: bool) -> dict:
         rec["library_ms"] = device_ms(library, 20)
         if bad.item():
             raise AssertionError("gather_blocks flagged an id out of range")
-    log(f"[4 kernels] gather_blocks, every launch of phases 5 and 8 "
+    log(f"[4 kernels] gather_blocks, every launch of phases 5, 8 and 9 "
         f"({len(launches)} launches): "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
            f"index_select {rec['library_ms']:.4f} ms, " if timed else "")
@@ -420,17 +482,143 @@ def _distance_record(shapes, device, timed: bool) -> dict:
     return rec
 
 
+def long_decode_inputs(B: int, S: int, H: int, K: int, hd: int, dtype,
+                       device, seed: int = SEED) -> tuple:
+    """decode_attention's long-context inputs: q (B, H, hd), k/v (B, S, K,
+    hd) drawn from a seeded generator on ``device``, pos = S."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+               for shape in ((B, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    return q, k, v, torch.full((B,), S, dtype=torch.int32, device=device)
+
+
+def _sdpa(q, kt, vt, mask):
+    """The library call: one ``scaled_dot_product_attention`` with GQA and
+    a length mask, on k/v laid out (B, K, S, hd)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def _decode_checks(q, k, v, pos, route: bool) -> tuple:
+    """decode_attention against its plain version on (q, k, v, pos): in
+    bf16 within ``BF16_STEPS`` of the largest plain output, and on f32
+    copies of the inputs at ``F32_TOL``.  With ``route``, also against
+    ``attend_decode`` at pos - 1, the call the decode route replaces: in
+    f32 at ``F32_TOL``, and in bf16 within the bound of attend_decode's
+    one extra rounding (p cast to bf16 before the PV product moves the
+    output by at most 2^-9 of max |v| over the valid entries) plus the
+    same output steps.  Returns (max |out - plain| in q's dtype, the
+    plain output in f32, the log text)."""
+    got = DA.decode_attention(q, k, v, pos).float()
+    want = decode_attention_ref(q, k, v, pos).to(q.dtype).float()
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    line = f"max |plain| {peak:.3g}"
+    lim = BF16_STEPS * peak
+    if q.dtype == torch.bfloat16:
+        if err > lim:
+            raise AssertionError(f"decode_attention: max |out - plain| "
+                                 f"{err:.3g} > {lim:.3g} in bf16")
+        line += f", max |out - plain| {err:.3g} (limit {lim:.3g})"
+    f32 = [t.float() for t in (q, k, v)]
+    got32, want32 = (DA.decode_attention(*f32, pos),
+                     decode_attention_ref(*f32, pos))
+    if not torch.allclose(got32, want32, **F32_TOL):
+        raise AssertionError("decode_attention != plain in f32")
+    line += f", f32 max |out - plain| {float((got32 - want32).abs().max()):.3g}"
+    if route:
+        r32 = LY.attend_decode(*f32, pos - 1)
+        if not torch.allclose(got32, r32, **F32_TOL):
+            raise AssertionError("decode_attention at pos + 1 != "
+                                 "attend_decode at pos, in f32")
+        line += (f", f32 max |out - attend_decode(pos - 1)| "
+                 f"{float((got32 - r32).abs().max()):.3g}")
+        if q.dtype == torch.bfloat16:
+            n = int(pos.max())
+            r_lim = 2.0 ** -9 * float(v[:, :n].float().abs().max()) + lim
+            r_err = float((got - LY.attend_decode(q, k, v, pos - 1).float())
+                          .abs().max())
+            if r_err > r_lim:
+                raise AssertionError(f"decode_attention at pos + 1: max |out"
+                                     f" - attend_decode(pos)| {r_err:.3g} > "
+                                     f"{r_lim:.3g} in bf16")
+            line += (f", max |out - attend_decode(pos - 1)| {r_err:.3g} "
+                     f"(limit {r_lim:.3g})")
+    del f32, got32, want32
+    return err, want, line
+
+
+def _decode_record(shapes, device, timed: bool) -> dict:
+    """decode_attention against its plain version at each of ``shapes``
+    ((label, q, k, v, pos), the first one the decode path's), as
+    ``_decode_checks`` holds it; at the path's shape also against
+    ``attend_decode`` at pos - 1.  Timed over copies that together
+    exceed the 50 MB L2 (the path finds each layer's cache cold: the
+    whole model's weights stream between two calls on one layer).  The
+    record's numbers are the first shape's."""
+    rec = {"name": "decode_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                     "decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention/kernel.py:77",
+           "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+           "bound_ms": None, "bound_by": "bytes", "library_ms": None}
+    for j, (label, q, k, v, pos) in enumerate(shapes):
+        B, H, hd = q.shape
+        S, K = k.shape[1], k.shape[2]
+        err, want, line = _decode_checks(q, k, v, pos, route=j == 0)
+        valid = int(torch.clamp(pos, 0, S).sum())
+        nbytes = (2 * valid * K * hd * k.element_size()
+                  + 2 * q.numel() * q.element_size() + 4 * B)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        ms = plain_ms = lib_ms = None
+        if timed:
+            n_copy = max(1, -(-64_000_000 // (2 * k.numel() *
+                                              k.element_size())))
+            sets = [(q, k, v, pos)] + [(q, k.clone(), v.clone(), pos)
+                                       for _ in range(n_copy - 1)]
+            bufs = [DA.buffers(q, kk) for _, kk, _, _ in sets]
+            ms = device_ms(lambda: [DA._launch(*a, *b) for a, b in
+                                    zip(sets, bufs)], 20) / n_copy
+            plain_ms = device_ms(lambda: [decode_attention_ref(*a)
+                                          for a in sets], 3) / n_copy
+            mask = (torch.arange(S, device=device)[None, :]
+                    < pos[:, None])[:, None, None, :]
+            lib = [(q, kk.transpose(1, 2).contiguous(),
+                    vv.transpose(1, 2).contiguous(), mask)
+                   for _, kk, vv, _ in sets]
+            try:
+                lib_err = float((_sdpa(*lib[0]).float() - want).abs().max())
+                lib_ms = device_ms(lambda: [_sdpa(*a) for a in lib],
+                                   5) / n_copy
+                line += f", SDPA max |out - plain| {lib_err:.3g}"
+            except RuntimeError as e:
+                line += f", SDPA refused these inputs: {e}"
+            del sets, bufs, lib
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if j == 0:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       library_ms=lib_ms)
+        log(f"[4 kernels] decode_attention {label} B={B} H={H} K={K} "
+            f"hd={hd} S={S} pos={sorted(set(pos.tolist()))} "
+            f"{str(q.dtype).replace('torch.', '')}: {line} | "
+            + (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+               + (f"{lib_ms:.4f} ms, " if lib_ms is not None else "none, ")
+               if timed else "")
+            + f"bound {bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB)")
+    return rec
+
+
 def phase_kernels(store, qstore, data, queries, launches, device, *,
-                  k: int = 20) -> list:
+                  k: int = 20, decode_shapes=()) -> list:
     """Phase 4: each kernel against its plain version at the paths'
-    shapes.  gather_blocks: every launch of phases 5 and 8
+    shapes.  gather_blocks: every launch of phases 5, 8 and 9
     (``gather_launches``) on its staged buffer (int32 graph blocks, f32
     vector blocks, int8 codes, f32 scales), exactly equal.  quant_topk:
     the flat stage-1 call (all queries against the padded flat int8
     database).  distance_topk: the throughput benchmark's call
     (``queries[:128]`` x ``data[:4096]``, k=10) and the flat f32 twin of
     the quant_topk call.  Top-k ids equal up to ties and distances within
-    rtol 1e-5 / atol 1e-3.  Times only on the card."""
+    rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
+    ``_decode_record``), when given.  Times only on the card."""
     timed = device.type == "cuda"
     bufs = {"graph": torch.as_tensor(store.graph_buf, device=device),
             "vec": torch.as_tensor(store.vec_buf, device=device),
@@ -479,10 +667,13 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
     records.append(_distance_record(
         [("throughput", q[:128], x_small, x_small.shape[0], 10),
          ("flat f32", q, vecs, n_valid, k)], device, timed))
+    if decode_shapes:
+        records.append(_decode_record(decode_shapes, device, timed))
     return records
 
 
-KERNEL_OPS = {"gather_blocks": GO, "quant_topk": QO, "distance_topk": DO}
+KERNEL_OPS = {"gather_blocks": GO, "quant_topk": QO, "distance_topk": DO,
+              "decode_attention": DA}
 
 
 def _reset_launches() -> None:
@@ -760,6 +951,222 @@ def phase_int8_pairs(ds, meta, qstore, device, *, k: int, doorbell: int,
     return {"gather_blocks": launches}
 
 
+class FirstCall:
+    """While active, records (cloned) the arguments of the first call of
+    ``module.name``; every call still goes through to the real function,
+    so its launches count as before."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.args = module, name, None
+
+    def __enter__(self) -> "FirstCall":
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self._call)
+        return self
+
+    def _call(self, *args, **kw):
+        if self.args is None:
+            self.args = tuple(a.clone() for a in args)
+        return self.real(*args, **kw)
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.real)
+
+
+def _busy_us(intervals) -> float:
+    """Microseconds covered by the union of (start, end) intervals."""
+    busy, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile_serve(eng, prompts, decode_s: float) -> None:
+    """One more ``eng.serve(prompts)`` under ``torch.profiler`` (CPU and
+    CUDA activity): the device's busy share over the decode loop, the
+    window the engine marks with ``DECODE_SPAN``, and the kernels' device
+    time by name inside it.  ``decode_s`` is an unprofiled call's decode
+    time (the same work: the same prompts and tokens), printed beside the
+    profiled one as the profiler's cost; the device's busy time is held
+    against both, since the profiler's host tracing slows only the
+    host.  Prints
+    "not measured" when the profiler records no device event.  Its
+    launches are not the main path's: the caller sets the counts to 0
+    afterwards."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = eng.device.type == "cuda"
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])) as prof:
+        eng.serve(prompts)
+    # the raw events: building prof.events()' tree takes tens of seconds at
+    # this count (some 3000 host operations and as many kernels a step)
+    events = [(e.name(), e.device_type(), e.start_ns() / 1e3,
+               e.end_ns() / 1e3)
+              for e in prof.profiler.kineto_results.events()]
+    spans = [(s, t) for name, dt, s, t in events
+             if name == DECODE_SPAN and dt == DeviceType.CPU]
+    if len(spans) != 1:
+        raise AssertionError(f"rag profile: {len(spans)} {DECODE_SPAN} "
+                             f"ranges, want 1")
+    a, b = spans[0]
+    kern = [(name, max(s, a), min(t, b)) for name, dt, s, t in events
+            if dt == DeviceType.CUDA and name != DECODE_SPAN and t > a
+            and s < b]
+    n_steps, wall_us = eng.max_new_tokens, b - a
+    head = (f"[9 rag] decode profile: one more serve call, {n_steps} steps "
+            f"in {wall_us / 1e3:.3f} ms ({wall_us / n_steps / 1e3:.3f} ms a "
+            f"step profiled, {decode_s / n_steps * 1e3:.3f} ms unprofiled), "
+            f"profiled and read in {time.perf_counter() - t0:.1f} s")
+    if not kern:
+        log(f"{head}; device busy share not measured (the profiler recorded "
+            f"no device event)")
+        return
+    busy = _busy_us([(s, t) for _, s, t in kern])
+    by: dict = {}          # kernel name -> [device us, count]
+    for name, s, t in kern:
+        name = ("decode_attention (both passes)"
+                if "decode_split" in name or "decode_combine" in name
+                else name[:48])
+        acc = by.setdefault(name, [0.0, 0])
+        acc[0] += t - s
+        acc[1] += 1
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:6]
+    att_us, att_n = by.get("decode_attention (both passes)", [0.0, 0])
+    log(f"{head} | {len(kern)} device events | device busy "
+        f"{busy / 1e3:.3f} ms ({busy / n_steps / 1e3:.3f} ms a step): busy "
+        f"share {busy / wall_us:.4f} of the profiled window (idle "
+        f"{1 - busy / wall_us:.4f}), {busy / (decode_s * 1e6):.4f} of the "
+        f"unprofiled call's decode time (idle "
+        f"{1 - busy / (decode_s * 1e6):.4f}) | decode_attention {att_us / 1e3:.3f} ms "
+        f"in {att_n // 2} launches, {2 * att_us / max(att_n, 1):.2f} us each "
+        f"(on the path's cold caches) | device ms by kernel, top 6: "
+        + "; ".join(f"{k} {v[0] / 1e3:.3f} ({v[1]})" for k, v in top))
+
+
+def _rag_calls(eng, prompts, gathers, capture, *, want_decode: int,
+               on_card: bool) -> tuple:
+    """Phase 9's counted ``serve`` calls, one per entry of ``gathers``
+    (``rag_path_gathers``' plan), the first under ``capture``.  Each call
+    is checked against its plan and ``want_decode`` decode_attention
+    launches.  Returns (tokens per call, launches summed, the last call's
+    decode seconds)."""
+    cfg = eng.cfg
+    B, Sp = prompts.shape
+    S = eng.docs_per_query * eng.docs.tokens.shape[1] + Sp
+    n_new = eng.max_new_tokens
+    outs, launches = [], {name: 0 for name in KERNEL_OPS}
+    for i, (round_ids, n_fetches) in enumerate(gathers):
+        if on_card:
+            torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        if i == 0:
+            with capture:
+                out, st = eng.serve(prompts)
+        else:
+            out, st = eng.serve(prompts)
+        wall = time.perf_counter() - t0
+        n = _launches()
+        r = st.retrieval
+        want_gather = len(EXACT_BUFS) * len(round_ids) if on_card else 0
+        if n["decode_attention"] != want_decode:
+            raise AssertionError(f"rag call {i}: {n['decode_attention']} "
+                                 f"decode_attention launches, want "
+                                 f"{want_decode}")
+        if n["gather_blocks"] != want_gather or r["n_fetches"] != n_fetches:
+            raise AssertionError(
+                f"rag call {i}: {n['gather_blocks']} gather launches and "
+                f"{r['n_fetches']} fetches, planned {want_gather} and "
+                f"{n_fetches}")
+        if out.shape != (B, n_new) or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"rag call {i}: tokens {out.shape} out of "
+                                 f"range")
+        outs.append(out)
+        for key in launches:
+            launches[key] += n[key]
+        net = r["net"]
+        log(f"[9 rag] call {i}: wall {wall:.4f} s = retrieve "
+            f"{st.retrieve_s:.4f} s + prefill {st.prefill_s:.4f} s (S={S}) "
+            f"+ decode {st.decode_s:.4f} s ({B * n_new / st.decode_s:.1f} "
+            f"tokens/s, {st.decode_s / n_new * 1e3:.3f} ms a step) | "
+            f"retrieval: trips={net['round_trips']} bytes={net['bytes']:.0f}"
+            f" fetches={r['n_fetches']} cache_hits={r['cache_hits']} | "
+            f"launches {n}")
+    return outs, launches, st.decode_s
+
+
+def phase_rag(ds, meta, store, device, *, cfg, doorbell: int, doc_len: int,
+              prompt_len: int, batch: int, max_new_tokens: int,
+              docs_per_query: int, n_calls: int, seed: int = SEED) -> tuple:
+    """Phase 9: ``RagServeEngine.serve`` with ``cfg`` over phase 5's
+    exact-scan engine (the CUDA gather on), whose indexed vectors are the
+    documents' embeddings; each document is ``doc_len`` tokens drawn with
+    numpy from the seed, and so are the ``batch`` prompts.  ``n_calls``
+    calls serve the same prompts: the tokens must be in range and equal
+    across calls, every decode layer of a window-free, softcap-free model
+    must go through ``decode_attention`` (``n_layers * max_new_tokens``
+    launches a call on the card), and each call's retrieval must fetch
+    the spans ``rag_path_gathers`` planned, in one gather launch per
+    staged buffer and round.  Then ``profile_serve`` measures the
+    device's busy share over the decode loop of one more call (not
+    counted).  Returns (launches, the planned gathers, the inputs of the
+    first decode_attention call)."""
+    rng = np.random.default_rng(seed)
+    docs = DocStore(ds.data, rng.integers(0, cfg.vocab_size,
+                                          (len(ds.data), doc_len),
+                                          dtype=np.int32))
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
+                           dtype=np.int32)
+    retriever = DHNSWEngine(exact_config(meta.n_partitions, doorbell, "scan"),
+                            device=device).adopt_built(
+        meta, dataclasses.replace(store), ds.data)
+    t0 = time.perf_counter()
+    eng = RagServeEngine(cfg, retriever, docs, max_new_tokens=max_new_tokens,
+                         docs_per_query=docs_per_query, seed=seed,
+                         device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  [*eng.params["blocks"].values(), eng.params["embed"],
+                   eng.params["final_norm"], eng.params["unembed"]])
+    log(f"[9 rag] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.the_head_dim()}, vocab "
+        f"{cfg.vocab_size}: weights {n_bytes / 1e9:.2f} GB drawn on "
+        f"{device} in {time.perf_counter() - t0:.2f} s | docs "
+        f"{len(ds.data)} x {doc_len} tokens, prompts {batch} x {prompt_len},"
+        f" {docs_per_query} docs a prompt, {max_new_tokens} new tokens")
+    gathers = rag_path_gathers(meta, store, eng._embed(prompts), device,
+                               doorbell=doorbell, n_calls=n_calls)
+    on_card = device.type == "cuda"
+    want_decode = cfg.n_layers * max_new_tokens if on_card else 0
+    capture = FirstCall(DA, "decode_attention")
+    try:
+        outs, launches, decode_s = _rag_calls(
+            eng, prompts, gathers, capture, want_decode=want_decode,
+            on_card=on_card)
+        if any(not np.array_equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError("rag: the calls generated different tokens")
+        if on_card and launches["gather_blocks"] == 0:
+            raise AssertionError("rag: the gather kernel did not launch on "
+                                 "the retrieval")
+        log(f"[9 rag] {n_calls} calls generated equal tokens; first "
+            f"sequence {outs[0][0][:8].tolist()}... | launches {launches}")
+        profile_serve(eng, prompts, decode_s)
+    finally:
+        eng.close()
+    _reset_launches()
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, gathers, capture.args
+
+
 def main() -> int:
     dev_info = phase_device()
     device = torch.device("cuda")
@@ -772,9 +1179,6 @@ def main() -> int:
     pair_gathers = {mode: pair_path_gathers(
         meta, qstore, ds.queries, device, doorbell=FULL["doorbell"],
         search_mode=mode, n_batches=PAIR_BATCHES) for mode in ("scan", "graph")}
-    planned = gather_launches(gathers, pair_gathers)
-    records = phase_kernels(store, qstore, ds.data, ds.queries, planned,
-                            device)
     launches, scan_stats = phase_exact(
         ds, meta, store, device, k=FULL["k"], doorbell=FULL["doorbell"],
         gathers=gathers, recall_floor=RECALL_FLOOR)
@@ -789,9 +1193,23 @@ def main() -> int:
                              n_batches=PAIR_BATCHES,
                              recall_floor=RECALL_FLOOR)
     launches["gather_blocks"] += pairs["gather_blocks"]
+    rag_launches, rag_gathers, first = phase_rag(
+        ds, meta, store, device, cfg=get_config(RAG_ARCH),
+        doorbell=FULL["doorbell"], **RAG)
+    launches["gather_blocks"] += rag_launches["gather_blocks"]
+    launches["decode_attention"] = rag_launches["decode_attention"]
+    planned = gather_launches(gathers, pair_gathers, rag_gathers)
     if launches["gather_blocks"] != len(planned):
         raise AssertionError(f"{launches['gather_blocks']} gather launches on "
                              f"the main path, {len(planned)} planned")
+    q, k, v, pos = first
+    records = phase_kernels(store, qstore, ds.data, ds.queries, planned,
+                            device, decode_shapes=[
+                                ("path", q, k, v, pos),
+                                ("long", *long_decode_inputs(
+                                    **DECODE_LONG, H=q.shape[1],
+                                    K=k.shape[2], hd=q.shape[2],
+                                    dtype=q.dtype, device=device))])
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] <= 0:

@@ -14,10 +14,15 @@ store_arrays: ``spec`` = {``dim``, ``deg``, ``np_max``, ``ov_cap``,
               ``graph_buf``, ``vec_buf``, ``meta_table``, ``n_base`` and,
               when the int8 mirror is attached, ``qvec_buf``,
               ``qscale_buf`` (None otherwise)
+
+``lm_params_from_numpy`` does the same for an LM's parameters: the
+reference's params pytree (nested dicts, leaves as numpy arrays) becomes
+the port's tree of tensors in the dtypes a serving copy keeps.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.hnsw import PaddedGraph
 from repro_torch.core.layout import LayoutSpec, Store
@@ -77,3 +82,18 @@ def state_from_numpy(meta_arrays: dict,
                   qscale_buf=None if qs is None else np.asarray(qs,
                                                                 np.float32))
     return meta, store
+
+
+def lm_params_from_numpy(cfg, tree: dict, device) -> dict:
+    """The port's LM params from the reference's params tree as numpy
+    arrays (same nesting and leaf names; ``device`` "cuda" or "cpu").
+    Each leaf is kept in ``models.model.stored_dtype``: the matrices in
+    ``cfg.dtype``, the embedding table and norm scales in f32."""
+    from repro_torch.models.model import stored_dtype
+
+    def conv(node):
+        return {key: conv(val) if isinstance(val, dict) else
+                torch.as_tensor(np.array(val, np.float32), device=device)
+                .to(stored_dtype(cfg, key))
+                for key, val in node.items()}
+    return conv(tree)

@@ -42,6 +42,10 @@ SIGNATURES = {
     # q, x, part_d, part_i, out_d, out_i, B, D, n_valid, k, n_chunks, stream
     "distance_topk_launch": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
+    # q, k, v, pos, part_ml, part_acc, out,
+    # B, S, K, G, hd, n_split, split_len, bf16, stream
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

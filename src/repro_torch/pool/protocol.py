@@ -36,6 +36,15 @@ from repro_torch.core.scheduler import doorbell_chunks
 from repro_torch.obs.trace import TRACER
 
 
+class PoolUnavailableError(ConnectionError):
+    """A memory node cannot be reached (dead, unreachable, or timed out).
+
+    Copied from the reference so that ``serve/server.py`` keeps its
+    failover handling; only the multi-node pools (not ported yet) raise
+    it.
+    """
+
+
 class MemoryPool(abc.ABC):
     """Abstract memory-pool transport.
 

@@ -183,6 +183,36 @@ def test_cpu_search_loads_no_jax_and_no_reference():
     assert "clean" in out.stdout
 
 
+def test_cpu_serve_loads_no_jax_and_no_reference():
+    """RAG serving through the port (configs, models, the decode route,
+    the batcher and server) on the CPU imports neither."""
+    code = (
+        "import sys\n"
+        "from repro_torch import DHNSWEngine, EngineConfig\n"
+        "from repro_torch.configs.registry import smoke_config\n"
+        "from repro_torch.serve.engine import (RagServeEngine,\n"
+        "                                      synthetic_doc_store)\n"
+        "cfg = smoke_config('qwen3-8b')\n"
+        "docs = synthetic_doc_store(200, 16, 4, cfg.vocab_size)\n"
+        "ret = DHNSWEngine(EngineConfig(n_rep=8, b=2, search_mode='scan',\n"
+        "                               use_gather_kernel=True),\n"
+        "                  device='cpu').build(docs.embeddings)\n"
+        "with RagServeEngine(cfg, ret, docs, max_new_tokens=3,\n"
+        "                    device='cpu') as eng:\n"
+        "    out, st = eng.serve(docs.tokens[:2])\n"
+        "    eng.server.metrics_text()\n"
+        "assert out.shape == (2, 3)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
 # ------------------------------------------------------------ no fallback
 
 def test_cuda_without_a_card_raises():
@@ -235,18 +265,6 @@ def test_chip_smoke_phases_on_cpu(chip_smoke):
         assert len(batches) == 4 and batches[0][0]
         assert all(sum(len(i) for i in ids) == n * store.spec.fetch_blocks
                    for ids, n in batches)
-    planned = cs.gather_launches(gathers, pair_gathers)
-    assert {b for b, _ in planned} == {"graph", "vec", "codes", "scales"}
-    assert len(planned) == 2 * 2 * len(gathers[0]) + 3 * sum(
-        len(ids) for batches in pair_gathers.values() for ids, _ in batches)
-    recs = cs.phase_kernels(store, qstore, ds.data, ds.queries, planned, cpu)
-    assert [r["name"] for r in recs] == ["gather_blocks", "quant_topk",
-                                         "distance_topk"]
-    assert all(r["ms"] is None and r["bound_ms"] > 0 for r in recs)
-    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert all(set(r) == keys for r in recs)
-    assert all((ROOT / r["source"]).exists() for r in recs)
     exact, scan_stats = cs.phase_exact(ds, meta, store, cpu, k=10,
                                        doorbell=16, gathers=gathers)
     q8 = cs.phase_int8(ds, meta, qstore, cpu, k=10, doorbell=16)
@@ -258,6 +276,37 @@ def test_chip_smoke_phases_on_cpu(chip_smoke):
                                 gathers=pair_gathers, n_batches=4)
     assert exact == {"gather_blocks": 0} and q8 == {"quant_topk": 0}
     assert tp == {"distance_topk": 0} and pairs == {"gather_blocks": 0}
+    # phase 9 at the smoke width of qwen3-8b, with the full path's shape
+    # of a request (S = 4 * 240 + 64 = 1024: prefill through flash)
+    from repro_torch.configs.registry import smoke_config
+    rag, rag_gathers, first = cs.phase_rag(
+        ds, meta, store, cpu, cfg=smoke_config(cs.RAG_ARCH), doorbell=16,
+        **cs.RAG)
+    assert all(n == 0 for n in rag.values())
+    assert len(rag_gathers) == cs.RAG["n_calls"] and rag_gathers[0][0]
+    q, k, v, pos = first
+    assert q.shape[0] == cs.RAG["batch"] and k.shape[1] == 1024 + 32
+    assert (pos == 1025).all()
+
+    planned = cs.gather_launches(gathers, pair_gathers, rag_gathers)
+    assert {b for b, _ in planned} == {"graph", "vec", "codes", "scales"}
+    assert len(planned) == 2 * 2 * len(gathers[0]) + 3 * sum(
+        len(ids) for batches in pair_gathers.values()
+        for ids, _ in batches) + 2 * sum(len(ids) for ids, _ in rag_gathers)
+    long = cs.long_decode_inputs(B=2, S=300, H=q.shape[1], K=k.shape[2],
+                                 hd=q.shape[2], dtype=q.dtype, device=cpu)
+    recs = cs.phase_kernels(store, qstore, ds.data, ds.queries, planned, cpu,
+                            decode_shapes=[("path", q, k, v, pos),
+                                           ("long", *long)])
+    assert [r["name"] for r in recs] == ["gather_blocks", "quant_topk",
+                                         "distance_topk", "decode_attention"]
+    assert all(r["ms"] is None and r["bound_ms"] > 0 for r in recs)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(set(r) == keys for r in recs)
+    assert all((ROOT / r["source"]).exists() for r in recs)
+    # the profiled decode window's busy time is a union of intervals
+    assert cs._busy_us([(5, 6), (0, 2), (1, 3), (5.5, 5.75)]) == 4.0
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
