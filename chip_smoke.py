@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of d-HNSW once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep]
 
 Phases, each printing its own lines:
 
@@ -49,6 +49,15 @@ planned from the engine's embedding of the prompts, and
 ``decode_attention`` is held at the inputs of phase 9's first decode
 call (captured there) and at a long-context shape (B=16, S=32768).
 
+With ``--sweep``, phase 4 also times every launch shape of the streaming
+kernels on the same inputs (lines ``[4 sweep]``): ``decode_attention`` at
+each number of warps sharing a kv head and of splits, each held against
+its plain output, beside SDPA, and at the long shape the card's power
+draw and clocks under the wrappers' cut and under SDPA; the gather
+beside one contiguous copy of the same bytes.  The wrappers' launch
+shapes (``decode_attention.ops.splits`` and ``warps_per_head``) were set
+from these lines.
+
 Every kernel's launch counter is set to 0 just before each path is
 driven and read just after.  The last lines are the kernels' JSON record
 (launches summed over the paths that run each kernel), the
@@ -58,6 +67,7 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -151,6 +161,31 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def power_under(fn, ms: float, seconds: float = 3.0) -> dict:
+    """The card's power draw and clocks while ``fn`` (``ms`` of device time
+    a call) runs back to back for about ``seconds``: ``nvidia-smi``
+    samples every 100 ms; the first and last samples are dropped."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=power.draw,clocks.sm,clocks.mem",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(max(1, int(seconds * 1e3 / ms))):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=60)[0]
+    rows = [[float(x) for x in line.split(",")]
+            for line in text.splitlines() if line.strip()]
+    rows = rows[3:-2] or rows
+    med = [sorted(col)[len(col) // 2] for col in zip(*rows)]
+    return {"samples": len(rows), "watts_median": med[0],
+            "watts_max": max(r[0] for r in rows), "sm_mhz_median": med[1],
+            "sm_mhz_min": min(r[1] for r in rows), "mem_mhz_median": med[2]}
 
 
 # ------------------------------------------------------------------ phases
@@ -271,7 +306,8 @@ def main_path_gathers(meta, store, queries, device, *, doorbell: int):
     engine: meta-HNSW routing on ``device``, then ``plan_batch`` over an
     empty cache of ``ceil(cache_frac * n_rep)`` slots.  Each round reads
     all its fetched spans in one ``read_spans`` call, which is one gather
-    launch per staged buffer.  Returns (ids per round, fetched spans)."""
+    launch for all its staged buffers.  Returns (ids per round, fetched
+    spans)."""
     cfg = exact_config(meta.n_partitions, doorbell)
     cap = max(2, int(np.ceil(cfg.cache_frac * meta.n_partitions)))
     plan = SCH.plan_batch(_route(meta, queries, device, cfg.b),
@@ -286,9 +322,9 @@ def pair_path_gathers(meta, qstore, queries, device, *, doorbell: int,
     them on a fresh engine: each batch routed on its own, then
     ``plan_batch`` over the quantized tier, whose capacity is what
     ``_setup_quant`` gives this cell and whose state carries from batch
-    to batch.  Each fetching round is one gather launch per quantized
-    buffer (graph blocks, codes, scales).  Returns, per batch, (ids per
-    round, fetched spans)."""
+    to batch.  Each fetching round is one gather launch for all the
+    quantized buffers (graph blocks, codes, scales).  Returns, per batch,
+    (ids per round, fetched spans)."""
     cfg = pairs_config(meta.n_partitions, doorbell, search_mode)
     spec = qstore.spec
     cap = max(2, int(np.ceil(cfg.cache_frac * meta.n_partitions)))
@@ -333,76 +369,95 @@ PAIR_BUFS = ("graph", "codes", "scales")
 
 
 def gather_launches(exact_gathers, pair_gathers, rag_gathers=()) -> list:
-    """Every gather launch of the main path, as (buffer, ids): phase 5's
-    counted batch in each search mode (graph, then scan), then phase 8's
-    counted run in each search mode (``pair_gathers``: mode -> the
-    result of ``pair_path_gathers``), then phase 9's retrieval
-    (``rag_path_gathers``' result)."""
-    out = [(buf, ids) for _ in ("graph", "scan")
-           for ids in exact_gathers[0] for buf in EXACT_BUFS]
+    """Every gather launch of the main path, one per span read, as
+    (buffers, ids): phase 5's counted batch in each search mode (graph,
+    then scan), then phase 8's counted run in each search mode
+    (``pair_gathers``: mode -> the result of ``pair_path_gathers``), then
+    phase 9's retrieval (``rag_path_gathers``' result)."""
+    out = [(EXACT_BUFS, ids) for _ in ("graph", "scan")
+           for ids in exact_gathers[0]]
     for batches in pair_gathers.values():
-        out += [(buf, ids) for round_ids, _ in batches
-                for ids in round_ids for buf in PAIR_BUFS]
-    out += [(buf, ids) for round_ids, _ in rag_gathers
-            for ids in round_ids for buf in EXACT_BUFS]
+        out += [(PAIR_BUFS, ids) for round_ids, _ in batches
+                for ids in round_ids]
+    out += [(EXACT_BUFS, ids) for round_ids, _ in rag_gathers
+            for ids in round_ids]
     return out
 
 
-def _gather_record(bufs, launches, device, timed: bool) -> dict:
-    """gather_blocks vs its plain version at every launch of the main
-    path (``gather_launches``), exactly equal.  The record's work is
-    those launches, in the path's order: ``ms``, ``plain_ms``,
-    ``library_ms`` and ``bound_ms`` are of all of them together."""
+def _gather_record(bufs, launches, device, timed: bool,
+                   sweep: bool = False) -> dict:
+    """The span gather vs its plain version at every launch of the main
+    path (``gather_launches``: one per span read, over all its buffers),
+    exactly equal.  The record's work is those launches, in the path's
+    order: ``ms``, ``plain_ms`` (``gather_blocks_ref`` per buffer),
+    ``library_ms`` (``index_select`` per buffer) and ``bound_ms`` are of
+    all of them together.  With ``sweep``, also one contiguous copy of
+    the same bytes: the card's copy rate, beside the kernel's."""
     worst = 0.0
-    bound_s = 0.0
-    for name, buf in bufs.items():
-        row_bytes = buf.shape[1] * buf.element_size()
-        for ids in {id(i): i for b, i in launches if b == name}.values():
-            got = GO.gather_blocks(buf, ids)
-            want = gather_blocks_ref(buf, ids)
-            if got.dtype != want.dtype or not torch.equal(got, want):
-                raise AssertionError(f"gather_blocks != plain on {name}")
-            worst = max(worst,
-                        float((got.double() - want.double()).abs().max()))
-        rows = [int(ids.shape[0]) for b, ids in launches if b == name]
-        nbytes = sum(2 * m * row_bytes + 4 * m for m in rows)
-        bound_s += nbytes / PEAK_BYTES_S
-        log(f"[4 kernels] gather_blocks {name:6s} "
-            f"{str(buf.dtype).replace('torch.', ''):7s} row={row_bytes} B, "
-            f"{len(rows)} launches of m={sorted(set(rows))} rows: exact "
-            f"match | bound {nbytes / PEAK_BYTES_S * 1e3:.4f} ms (bytes)")
+    nbytes = 0
+    for names in dict.fromkeys(names for names, _ in launches):
+        row_bytes = [bufs[n].shape[1] * bufs[n].element_size()
+                     for n in names]
+        seen = {id(i): i for b, i in launches if b == names}.values()
+        for ids in seen:
+            got = GO.gather_spans([bufs[n] for n in names], ids)
+            for n, g in zip(names, got):
+                want = gather_blocks_ref(bufs[n], ids)
+                if g.dtype != want.dtype or not torch.equal(g, want):
+                    raise AssertionError(f"gather_spans != plain on {n}")
+                worst = max(worst,
+                            float((g.double() - want.double()).abs().max()))
+        rows = [int(ids.shape[0]) for b, ids in launches if b == names]
+        part = sum(2 * m * sum(row_bytes) + 4 * m for m in rows)
+        nbytes += part
+        log(f"[4 kernels] gather_spans {'+'.join(names)} (rows of "
+            f"{row_bytes} B), {len(rows)} launches of "
+            f"m={sorted(set(rows))} rows: exact match | bound "
+            f"{part / PEAK_BYTES_S * 1e3:.4f} ms (bytes)")
     rec = {"name": "gather_blocks", "route": "cuda",
            "source": "src/repro_torch/kernels/gather_blocks/csrc/"
                      "gather_blocks.cu",
            "replaces": "src/repro/kernels/gather_blocks/kernel.py:31",
            "launches": 0, "max_abs_err": worst, "ms": None,
-           "plain_ms": None, "bound_ms": bound_s * 1e3, "bound_by": "bytes",
-           "library_ms": None}
+           "plain_ms": None, "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+           "bound_by": "bytes", "library_ms": None}
     if timed:
-        work = [(bufs[b], ids) for b, ids in launches]
-        outs = [torch.empty((ids.shape[0], b.shape[1]), dtype=b.dtype,
-                            device=device) for b, ids in work]
-        bad = torch.zeros(1, dtype=torch.int32, device=device)
+        work = [([bufs[n] for n in names], ids) for names, ids in launches]
+        outs = [[torch.empty((ids.shape[0], b.shape[1]), dtype=b.dtype,
+                             device=device) for b in bs] for bs, ids in work]
+        bad = GO.flag(device)
 
         def kern():
-            for (b, ids), o in zip(work, outs):
-                GO._launch(b, ids, o, bad)
+            for (bs, ids), o in zip(work, outs):
+                GO._launch(bs, ids, o, bad)
 
         def plain():
-            for b, ids in work:
-                gather_blocks_ref(b, ids)
+            for bs, ids in work:
+                for b in bs:
+                    gather_blocks_ref(b, ids)
 
         def library():
-            for b, ids in work:
-                torch.index_select(b, 0, ids)
+            for bs, ids in work:
+                for b in bs:
+                    torch.index_select(b, 0, ids)
 
         rec["ms"] = device_ms(kern, 20)
         rec["plain_ms"] = device_ms(plain, 20)
         rec["library_ms"] = device_ms(library, 20)
+        if sweep:
+            src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+            dst = torch.empty_like(src)
+            copy_ms = device_ms(lambda: dst.copy_(src), 20)
+            log(f"[4 sweep] gather_spans: one contiguous copy of the same "
+                f"bytes {copy_ms:.4f} ms ({rec['bound_ms'] / copy_ms:.3f} of "
+                f"the bound); the kernel {rec['ms']:.4f} ms, "
+                f"{copy_ms / rec['ms']:.3f} of the copy's rate")
+            del src, dst
         if bad.item():
-            raise AssertionError("gather_blocks flagged an id out of range")
-    log(f"[4 kernels] gather_blocks, every launch of phases 5, 8 and 9 "
-        f"({len(launches)} launches): "
+            raise AssertionError("gather_spans flagged an id out of range")
+    log(f"[4 kernels] gather_spans, every span read of phases 5, 8 and 9 "
+        f"({len(launches)} launches, "
+        f"{sum(len(names) for names, _ in launches)} buffer reads): "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
            f"index_select {rec['library_ms']:.4f} ms, " if timed else "")
         + f"bound {rec['bound_ms']:.4f} ms (bytes)")
@@ -547,14 +602,64 @@ def _decode_checks(q, k, v, pos, route: bool) -> tuple:
     return err, want, line
 
 
-def _decode_record(shapes, device, timed: bool) -> dict:
+def _decode_sweep(label: str, sets, want, bound_ms: float, sdpa,
+                  sdpa_ms, power: bool) -> None:
+    """``--sweep``: decode_attention at every cut of one shape's caches
+    (warps sharing a kv head x splits) over the timed copies ``sets``,
+    each held against the plain output ``want`` as ``_decode_checks``
+    holds it, beside SDPA (``sdpa``, ``sdpa_ms``: the same copies) and
+    the bound.  With ``power``, the card's draw and clocks under the
+    wrappers' cut and under SDPA."""
+    q, k = sets[0][0], sets[0][1]
+    B, S, K = q.shape[0], k.shape[1], k.shape[2]
+    lim = BF16_STEPS * float(want.abs().max())
+    default = (DA.warps_per_head(B, K), DA.splits(B, K, S))
+    tiles = -(-S // 64)
+    cuts = dict.fromkeys(
+        (n_split, split_len) for n in (1, 2, 3, 4, 6, 8, 12, 17, 33, 64)
+        if n <= tiles for split_len in [-(-tiles // n) * 64]
+        for n_split in [-(-S // split_len)])
+    for wph in (1, 2, 4, 8):
+        for n_split, split_len in cuts:
+            bufs = [DA.buffers(a[0], a[1], n_split, split_len) for a in sets]
+            DA._launch(*sets[0], *bufs[0], DA.WARPS, wph)
+            got = bufs[0][2].float()
+            err = float((got - want).abs().max())
+            if (err > lim if q.dtype == torch.bfloat16
+                    else not torch.allclose(got, want, **F32_TOL)):
+                raise AssertionError(
+                    f"decode_attention {label} wph={wph} n_split={n_split}:"
+                    f" max |out - plain| {err:.3g} > {lim:.3g}")
+            ms = device_ms(lambda: [DA._launch(*a, *b, DA.WARPS, wph)
+                                    for a, b in zip(sets, bufs)],
+                           20) / len(sets)
+            mark = (" (the wrappers' cut)"
+                    if (wph, (n_split, split_len)) == default else "")
+            log(f"[4 sweep] decode_attention {label}: {wph} warps a kv "
+                f"head, {n_split} splits of {split_len} keys: {ms:.4f} ms, "
+                + (f"{ms / sdpa_ms:.3f} x SDPA, " if sdpa_ms else "")
+                + f"{bound_ms / ms:.3f} of the bound{mark}")
+    if power:
+        bufs = [DA.buffers(a[0], a[1]) for a in sets]
+        runs = {"decode_attention": lambda: [DA._launch(*a, *b) for a, b
+                                             in zip(sets, bufs)]}
+        if sdpa_ms:
+            runs["SDPA"] = sdpa
+        for name, fn in runs.items():
+            ms = device_ms(fn, 20)
+            log(f"[4 sweep] power under {name} at the {label} shape "
+                f"({ms:.4f} ms a call): {json.dumps(power_under(fn, ms))}")
+
+
+def _decode_record(shapes, device, timed: bool, sweep: bool = False) -> dict:
     """decode_attention against its plain version at each of ``shapes``
     ((label, q, k, v, pos), the first one the decode path's), as
     ``_decode_checks`` holds it; at the path's shape also against
     ``attend_decode`` at pos - 1.  Timed over copies that together
     exceed the 50 MB L2 (the path finds each layer's cache cold: the
     whole model's weights stream between two calls on one layer).  The
-    record's numbers are the first shape's."""
+    record's numbers are the first shape's.  ``sweep``: see
+    ``_decode_sweep`` (power at the last shape)."""
     rec = {"name": "decode_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/decode_attention/csrc/"
                      "decode_attention.cu",
@@ -592,6 +697,10 @@ def _decode_record(shapes, device, timed: bool) -> dict:
                 line += f", SDPA max |out - plain| {lib_err:.3g}"
             except RuntimeError as e:
                 line += f", SDPA refused these inputs: {e}"
+            if sweep:
+                _decode_sweep(label, sets, want, bound_ms,
+                              lambda: [_sdpa(*a) for a in lib], lib_ms,
+                              power=j == len(shapes) - 1)
             del sets, bufs, lib
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if j == 0:
@@ -608,23 +717,25 @@ def _decode_record(shapes, device, timed: bool) -> dict:
 
 
 def phase_kernels(store, qstore, data, queries, launches, device, *,
-                  k: int = 20, decode_shapes=()) -> list:
+                  k: int = 20, decode_shapes=(), sweep: bool = False) -> list:
     """Phase 4: each kernel against its plain version at the paths'
     shapes.  gather_blocks: every launch of phases 5, 8 and 9
-    (``gather_launches``) on its staged buffer (int32 graph blocks, f32
-    vector blocks, int8 codes, f32 scales), exactly equal.  quant_topk:
+    (``gather_launches``: one per span read) on its staged buffers (int32
+    graph blocks, f32 vector blocks, int8 codes, f32 scales), exactly
+    equal.  quant_topk:
     the flat stage-1 call (all queries against the padded flat int8
     database).  distance_topk: the throughput benchmark's call
     (``queries[:128]`` x ``data[:4096]``, k=10) and the flat f32 twin of
     the quant_topk call.  Top-k ids equal up to ties and distances within
     rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
-    ``_decode_record``), when given.  Times only on the card."""
+    ``_decode_record``), when given.  Times only on the card; ``sweep``
+    adds the ``--sweep`` lines."""
     timed = device.type == "cuda"
     bufs = {"graph": torch.as_tensor(store.graph_buf, device=device),
             "vec": torch.as_tensor(store.vec_buf, device=device),
             "codes": torch.as_tensor(qstore.qvec_buf, device=device),
             "scales": torch.as_tensor(qstore.qscale_buf, device=device)}
-    records = [_gather_record(bufs, launches, device, timed)]
+    records = [_gather_record(bufs, launches, device, timed, sweep)]
 
     codes, scales, vecs, n_valid = flat_view(qstore, device)
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
@@ -668,7 +779,7 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
         [("throughput", q[:128], x_small, x_small.shape[0], 10),
          ("flat f32", q, vecs, n_valid, k)], device, timed))
     if decode_shapes:
-        records.append(_decode_record(decode_shapes, device, timed))
+        records.append(_decode_record(decode_shapes, device, timed, sweep))
     return records
 
 
@@ -754,7 +865,7 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
     against the same engine with the gather off (an exact copy, so the
     results must be equal).  ``gathers`` is ``main_path_gathers``' result:
     each batch must fetch the spans it planned, in one gather launch per
-    staged buffer and round, so phase 4 timed the launches made here.
+    round (span read), so phase 4 timed the launches made here.
     Returns the gather launches of the path and the scan batch's stats."""
     launches = 0
     round_ids, n_fetches = gathers
@@ -772,7 +883,7 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
         n_launch = n_on["gather_blocks"]
         if n_off["gather_blocks"]:
             raise AssertionError("gather_blocks launched with the gather off")
-        want = len(EXACT_BUFS) * len(round_ids) if device.type == "cuda" else 0
+        want = len(round_ids) if device.type == "cuda" else 0
         if n_launch != want or st["n_fetches"] != n_fetches:
             raise AssertionError(
                 f"exact {search_mode}: {n_launch} gather launches and "
@@ -888,8 +999,8 @@ def phase_int8_pairs(ds, meta, qstore, device, *, k: int, doorbell: int,
     off, in turns (an exact copy: gids, distances and counted stats
     equal).  ``gathers`` maps each mode to ``pair_path_gathers``' result:
     each batch must fetch the spans it planned, in one gather launch per
-    quantized buffer and round, so phase 4 checked and timed the launches
-    made here.  Returns the gather launches of the path."""
+    round (span read), so phase 4 checked and timed the launches made
+    here.  Returns the gather launches of the path."""
     B, n = ds.queries.shape[0], ds.data.shape[0]
     per = B // n_batches
     launches = 0
@@ -915,8 +1026,7 @@ def phase_int8_pairs(ds, meta, qstore, device, *, k: int, doorbell: int,
                 raise AssertionError(
                     f"{what}: {st['exact_admitted']} spans admitted to the "
                     "exact tier, whose reads phase 4 did not plan")
-            want = (len(PAIR_BUFS) * len(round_ids)
-                    if device.type == "cuda" else 0)
+            want = len(round_ids) if device.type == "cuda" else 0
             if n_on["gather_blocks"] != want or st["n_fetches"] != n_fetches:
                 raise AssertionError(
                     f"{what}: {n_on['gather_blocks']} gather launches and "
@@ -1029,21 +1139,19 @@ def profile_serve(eng, prompts, decode_s: float) -> None:
     busy = _busy_us([(s, t) for _, s, t in kern])
     by: dict = {}          # kernel name -> [device us, count]
     for name, s, t in kern:
-        name = ("decode_attention (both passes)"
-                if "decode_split" in name or "decode_combine" in name
-                else name[:48])
+        name = "decode_attention" if "decode_attention" in name else name[:48]
         acc = by.setdefault(name, [0.0, 0])
         acc[0] += t - s
         acc[1] += 1
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:6]
-    att_us, att_n = by.get("decode_attention (both passes)", [0.0, 0])
+    att_us, att_n = by.get("decode_attention", [0.0, 0])
     log(f"{head} | {len(kern)} device events | device busy "
         f"{busy / 1e3:.3f} ms ({busy / n_steps / 1e3:.3f} ms a step): busy "
         f"share {busy / wall_us:.4f} of the profiled window (idle "
         f"{1 - busy / wall_us:.4f}), {busy / (decode_s * 1e6):.4f} of the "
         f"unprofiled call's decode time (idle "
-        f"{1 - busy / (decode_s * 1e6):.4f}) | decode_attention {att_us / 1e3:.3f} ms "
-        f"in {att_n // 2} launches, {2 * att_us / max(att_n, 1):.2f} us each "
+        f"{1 - busy / (decode_s * 1e6):.4f}) | decode_attention "
+        f"{att_us / 1e3:.3f} ms in {att_n} launches, {att_us / max(att_n, 1):.2f} us each "
         f"(on the path's cold caches) | device ms by kernel, top 6: "
         + "; ".join(f"{k} {v[0] / 1e3:.3f} ({v[1]})" for k, v in top))
 
@@ -1073,7 +1181,7 @@ def _rag_calls(eng, prompts, gathers, capture, *, want_decode: int,
         wall = time.perf_counter() - t0
         n = _launches()
         r = st.retrieval
-        want_gather = len(EXACT_BUFS) * len(round_ids) if on_card else 0
+        want_gather = len(round_ids) if on_card else 0
         if n["decode_attention"] != want_decode:
             raise AssertionError(f"rag call {i}: {n['decode_attention']} "
                                  f"decode_attention launches, want "
@@ -1113,7 +1221,7 @@ def phase_rag(ds, meta, store, device, *, cfg, doorbell: int, doc_len: int,
     must go through ``decode_attention`` (``n_layers * max_new_tokens``
     launches a call on the card), and each call's retrieval must fetch
     the spans ``rag_path_gathers`` planned, in one gather launch per
-    staged buffer and round.  Then ``profile_serve`` measures the
+    round.  Then ``profile_serve`` measures the
     device's busy share over the decode loop of one more call (not
     counted).  Returns (launches, the planned gathers, the inputs of the
     first decode_attention call)."""
@@ -1167,7 +1275,12 @@ def phase_rag(ds, meta, store, device, *, cfg, doorbell: int, doc_len: int,
     return launches, gathers, capture.args
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="phase 4 also times every launch shape of the "
+                         "streaming kernels")
+    args = ap.parse_args(argv)
     dev_info = phase_device()
     device = torch.device("cuda")
     log("reduced: " + json.dumps(REDUCED))
@@ -1201,7 +1314,8 @@ def main() -> int:
     planned = gather_launches(gathers, pair_gathers, rag_gathers)
     if launches["gather_blocks"] != len(planned):
         raise AssertionError(f"{launches['gather_blocks']} gather launches on "
-                             f"the main path, {len(planned)} planned")
+                             f"the main path, {len(planned)} span reads "
+                             f"planned (one launch each)")
     q, k, v, pos = first
     records = phase_kernels(store, qstore, ds.data, ds.queries, planned,
                             device, decode_shapes=[
@@ -1209,7 +1323,8 @@ def main() -> int:
                                 ("long", *long_decode_inputs(
                                     **DECODE_LONG, H=q.shape[1],
                                     K=k.shape[2], hd=q.shape[2],
-                                    dtype=q.dtype, device=device))])
+                                    dtype=q.dtype, device=device))],
+                            sweep=args.sweep)
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] <= 0:

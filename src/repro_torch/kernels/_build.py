@@ -33,8 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES = {
-    # buf, ids, out, m, row_bytes, n_rows, bad, stream
-    "gather_blocks_launch": [_P, _P, _P, _L, _L, _L, _P, _P],
+    # table (n_bufs x (src, dst, row_bytes, n_rows), on the host), n_bufs,
+    # ids, m, bad, stream
+    "gather_spans_launch": [_P, _I, _P, _L, _P, _P],
     # q, codes, scales, part_d, part_i, out_d, out_i,
     # B, D, group, n_valid, k, n_chunks, stream
     "quant_topk_launch": [_P, _P, _P, _P, _P, _P, _P,
@@ -42,10 +43,10 @@ SIGNATURES = {
     # q, x, part_d, part_i, out_d, out_i, B, D, n_valid, k, n_chunks, stream
     "distance_topk_launch": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
-    # q, k, v, pos, part_ml, part_acc, out,
-    # B, S, K, G, hd, n_split, split_len, bf16, stream
-    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, pos, part_ml, part_acc, arrivals, out,
+    # B, S, K, G, hd, n_split, split_len, warps, wph, bf16, stream
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

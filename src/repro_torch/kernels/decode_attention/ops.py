@@ -5,8 +5,8 @@ launches the CUDA kernel (``csrc/decode_attention.cu``) for tensors on
 the card; there is no fallback from one to the other.  Either way the
 result follows the reference wrapper's contract
 (``repro/kernels/decode_attention/ops.py``): ``(B, H, hd)`` in q's
-dtype.  ``launches`` counts kernel launches (one per call:
-both passes).
+dtype.  ``launches`` counts kernel launches: one per call, the combine
+of the splits included.
 
 One behaviour differs between the two, as it does in the reference: at
 ``pos = 0`` the kernel returns zeros (the Pallas kernel skips every
@@ -24,16 +24,38 @@ from repro_torch.obs.trace import TRACER
 launches = 0
 HD_MAX = 256         # longest head the kernel takes (a multiple of 8)
 G_MAX = 16           # most query heads per kv head
-_TILE = 64           # keys per tile of csrc/decode_attention.cu
-_TARGET_CTAS = 4 * 132   # about four waves on the H100's 132 SMs
+_TILE = 64           # split ranges are whole tiles of this many keys
+WARPS = 8            # warps of a CTA
+# warps in flight: one 8-warp CTA on each of the H100's 132 SMs (about 170
+# registers a thread leave room for one), as (sequence, kv head) pairs x
+# warps per head x splits; the cuts python3 chip_smoke.py --sweep times
+_TARGET_WARPS = WARPS * 132
+# (sequence, head group) arrival counters of the split combine, per
+# (device, stream): zeroed once, left at 0 by every launch
+_arrivals: dict = {}
+
+
+def _per_pair(B: int, K: int) -> int:
+    """Warps each (sequence, kv head) pair gets of ``_TARGET_WARPS``."""
+    return max(1, _TARGET_WARPS // max(B * K, 1))
+
+
+def warps_per_head(B: int, K: int) -> int:
+    """How many of a CTA's warps share one kv head's range (a power of two
+    up to ``WARPS``): all of them when the pairs are few, one when the
+    pairs alone fill the card."""
+    wph = 1
+    while wph * 2 <= min(_per_pair(B, K), WARPS):
+        wph *= 2
+    return wph
 
 
 def splits(B: int, K: int, S: int) -> tuple[int, int]:
-    """(n_split, split_len): how pass 1 cuts each cache of S entries so
-    that the B * K (sequence, kv head) pairs make about ``_TARGET_CTAS``
-    CTAs, never a range shorter than one tile."""
+    """(n_split, split_len): how the kernel cuts each cache of S entries so
+    that pairs x warps per head x splits make about ``_TARGET_WARPS``
+    warps, never a range shorter than one tile."""
     tiles = -(-S // _TILE)
-    n = max(1, min(tiles, -(-_TARGET_CTAS // max(B * K, 1))))
+    n = max(1, min(tiles, _per_pair(B, K) // warps_per_head(B, K)))
     split_len = -(-tiles // n) * _TILE
     return -(-S // split_len), split_len
 
@@ -53,28 +75,50 @@ def _check(q, k, v, pos):
         raise ValueError("q, k, v and pos on different devices")
 
 
+def arrivals(device, n: int) -> torch.Tensor:
+    """The arrival counters of PyTorch's current stream on ``device``, at
+    least ``n`` of them, all 0 between launches."""
+    key = (device, _build.stream_handle(device))
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrivals[key] = buf
+    return buf
+
+
 def _launch(q, k, v, pos, part_ml, part_acc, out, n_split: int,
-            split_len: int) -> None:
-    """Launch both passes into preallocated buffers (no checks, not
-    counted)."""
+            split_len: int, warps: int = WARPS, wph: int | None = None) -> None:
+    """Launch the kernel into preallocated buffers (no checks, not
+    counted).  ``wph`` defaults to ``warps_per_head``; both are cut to
+    what the CTA and the kv heads can use."""
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
+    wph = min(wph or warps_per_head(B, K), warps)
+    while warps % wph:
+        wph //= 2
+    warps = min(warps, wph * K)
     lib = _build.library()
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, S, K,
-        H // K, hd, n_split, split_len, int(q.dtype == torch.bfloat16),
-        _build.stream_handle(q.device))
+        part_ml.data_ptr(), part_acc.data_ptr(),
+        arrivals(q.device, B * K).data_ptr(), out.data_ptr(), B, S, K,
+        H // K, hd, n_split, split_len, warps, wph,
+        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(err, "decode_attention")
 
 
-def buffers(q, k) -> tuple:
-    """(part_ml, part_acc, out, n_split, split_len) for one launch."""
+def buffers(q, k, n_split: int | None = None,
+            split_len: int | None = None) -> tuple:
+    """(part_ml, part_acc, out, n_split, split_len) for one launch, cut
+    as ``splits`` cuts unless both are given."""
     B, H, hd = q.shape
-    n_split, split_len = splits(B, k.shape[2], k.shape[1])
-    dev = q.device
-    return (torch.empty((B * H, n_split, 2), dtype=torch.float32, device=dev),
-            torch.empty((B * H, n_split, hd), dtype=torch.float32,
+    K = k.shape[2]
+    if n_split is None or split_len is None:
+        n_split, split_len = splits(B, K, k.shape[1])
+    dev, G = q.device, H // K
+    return (torch.empty((B * K, n_split, G, 2), dtype=torch.float32,
+                        device=dev),
+            torch.empty((B * K, n_split, G, hd), dtype=torch.float32,
                         device=dev),
             torch.empty_like(q), n_split, split_len)
 

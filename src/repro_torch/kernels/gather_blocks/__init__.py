@@ -1,1 +1,2 @@
-"""Doorbell block gather: CUDA kernel (csrc/) + plain torch version."""
+"""Doorbell span gather (one launch per span read, over one to three
+buffers): CUDA kernel (csrc/) + plain torch version."""

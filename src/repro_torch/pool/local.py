@@ -1,8 +1,9 @@
 """In-process memory pool: the serialized region as device tensors.
 
 Port of ``repro/pool/local.py`` for this slice: full staging, span reads
-through the doorbell gather (``kernels/gather_blocks`` when
-``use_gather_kernel`` is set, ``index_select`` otherwise), row reads, and
+through the doorbell gather (``kernels/gather_blocks``' ``gather_spans``,
+one launch per span read for all its buffers, when ``use_gather_kernel``
+is set; an ``index_select`` per buffer otherwise), row reads, and
 the quantized mirror for the int8 flat route.  Charges follow the shared
 ``MemoryPool`` rule, so ledgers equal the reference's.
 
@@ -102,11 +103,14 @@ class LocalPool(MemoryPool):
 
     # ------------------------------------------------------------ reads
 
-    def _gather_blocks(self, buf, ids):
+    def _gather_spans(self, bufs, ids) -> list:
+        """One span read from every buffer of ``bufs``: one launch of the
+        CUDA gather when ``use_gather_kernel`` is set, else an
+        ``index_select`` per buffer."""
         if self.use_gather_kernel:
             from repro_torch.kernels.gather_blocks import ops as GO
-            return GO.gather_blocks(buf, ids)
-        return buf.index_select(0, ids.long())
+            return GO.gather_spans(bufs, ids)
+        return [buf.index_select(0, ids.long()) for buf in bufs]
 
     def read_spans(self, pids, *, ledger: Optional[NetLedger],
                    doorbell: int = 1, quant: bool = False,
@@ -129,15 +133,14 @@ class LocalPool(MemoryPool):
         ids = torch.as_tensor(block_ids.reshape(-1), dtype=torch.int32,
                               device=self.device)
         m = block_ids.shape[0]
-        g = self._gather_blocks(self._g_dev, ids).reshape(m, -1, spec.gblk)
         if not quant:
-            v = self._gather_blocks(self._v_dev, ids).reshape(m, -1,
-                                                              spec.vblk)
-            return g, v
-        qv = self._gather_blocks(self._qv_dev, ids).reshape(m, -1, spec.vblk)
-        qs = self._gather_blocks(self._qs_dev, ids).reshape(
-            m, -1, spec.n_qgroups)
-        return g, qv, qs
+            g, v = self._gather_spans((self._g_dev, self._v_dev), ids)
+            return (g.reshape(m, -1, spec.gblk),
+                    v.reshape(m, -1, spec.vblk))
+        g, qv, qs = self._gather_spans(
+            (self._g_dev, self._qv_dev, self._qs_dev), ids)
+        return (g.reshape(m, -1, spec.gblk), qv.reshape(m, -1, spec.vblk),
+                qs.reshape(m, -1, spec.n_qgroups))
 
     def read_rows(self, rows):
         """See ``MemoryPool.read_rows``; charged via ``post_row_reads``."""

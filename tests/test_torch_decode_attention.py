@@ -154,7 +154,31 @@ def test_decode_attention_splits_cover_the_cache(B, K, S):
     n, split_len = DA.splits(B, K, S)
     assert split_len % 64 == 0 and split_len >= 64
     assert n * split_len >= S > (n - 1) * split_len
-    assert B * K * n <= max(DA._TARGET_CTAS, B * K) + B * K
+    assert B * K * n <= max(DA._TARGET_WARPS, B * K)
+
+
+@pytest.mark.parametrize("B,K,S", [(8, 8, 1056), (16, 8, 32768), (1, 1, 1),
+                                   (64, 8, 64), (2, 2, 300), (1000, 8, 10)])
+def test_decode_attention_warps_per_head_fill_the_card(B, K, S):
+    """Pairs x warps per head x splits stay within the warps the card holds
+    at once (or one warp per pair when the pairs alone exceed it), and
+    the warps per head are a power of two up to a CTA's width."""
+    wph = DA.warps_per_head(B, K)
+    n, _ = DA.splits(B, K, S)
+    assert wph & (wph - 1) == 0 and 1 <= wph <= DA.WARPS
+    assert B * K * wph * n <= max(DA._TARGET_WARPS, B * K)
+    if B * K * 2 <= DA._TARGET_WARPS:
+        assert B * K * wph * 2 > DA._TARGET_WARPS or wph == DA.WARPS
+
+
+def test_decode_attention_phase4_shapes_cut_as_measured():
+    """The cuts ``python3 chip_smoke.py --sweep`` measured fastest on the
+    H100 at ``chip_smoke.py``'s two decode shapes: 8 warps on each kv
+    head, the path's 1056-entry caches in 2 splits and the 32K caches in
+    one."""
+    assert (DA.warps_per_head(8, 8), DA.splits(8, 8, 1056)) == (8, (2, 576))
+    assert (DA.warps_per_head(16, 8),
+            DA.splits(16, 8, 32768)) == (8, (1, 32768))
 
 
 def test_decode_attention_checks_inputs_and_launches_nothing_on_cpu(rng):
@@ -197,6 +221,7 @@ def _cuda():
     *[(B, S, K, G, hd, None) for B, S, K, G, hd in SWEEP],
     (8, 1056, 8, 4, 128, [1025] * 8),      # qwen3-8b's first decode step
     (4, 700, 8, 4, 128, [1, 64, 65, 700]),  # ragged pos, tile edges
+    (4, 700, 8, 4, 128, [127, 128, 129, 385]),  # around split edges
     (3, 333, 32, 1, 96, [333, 100, 7]),     # phi3-mini: hd 96, G 1
     (2, 130, 2, 16, 256, [130, 129]),
     (2, 64, 1, 3, 8, [64, 33])])
@@ -243,3 +268,56 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take():
     q, k, v, p = (t.to(dev) for t in _torch(*_inputs(rng, 2, 64, 2, 2, 16)))
     with pytest.raises(ValueError, match="f32"):
         DA.decode_attention(q, k.bfloat16(), v.bfloat16(), p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_split,warps,wph", [(1, 8, 8), (1, 1, 1),
+                                               (2, 4, 2), (5, 8, 1),
+                                               (17, 2, 2), (3, 8, 4)])
+def test_decode_attention_kernel_split_edges_on_card(n_split, warps, wph,
+                                                     dtype):
+    """The one-launch combine at a given cut of the cache and CTA shape
+    (warps, and warps sharing a kv head): pos just before, at and just
+    after split boundaries (so the last live split is short,
+    whole, or a single key, and later splits are never read), two
+    back-to-back launches bit-equal, and every arrival counter back at 0
+    after each launch."""
+    dev = _cuda()
+    B, S, K, G, hd = 6, 1088, 4, 4, 128
+    tiles = -(-S // 64)
+    split_len = -(-tiles // n_split) * 64
+    n_split = -(-S // split_len)
+    edges = [split_len - 1, split_len, split_len + 1, min(S, 2 * split_len),
+             1, S]
+    rng = np.random.default_rng(n_split * 10 + warps)
+    q, k, v, p = (t.to(dev) for t in _torch(
+        *_inputs(rng, B, S, K, G, hd, [min(e, S) for e in edges]),
+        dtype=getattr(torch, dtype)))
+    want = decode_attention_ref(q, k, v, p).to(q.dtype).float().cpu().numpy()
+    tol = F32_TOL if dtype == "float32" else dict(
+        atol=BF16_STEPS * np.abs(want).max(), rtol=0)
+    outs = []
+    for _ in range(2):
+        bufs = DA.buffers(q, k, n_split, split_len)
+        DA._launch(q, k, v, p, *bufs, warps, wph)
+        torch.cuda.synchronize()
+        assert not DA.arrivals(q.device, B * K).any()
+        outs.append(bufs[2])
+    np.testing.assert_allclose(outs[0].float().cpu().numpy(), want, **tol)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_back_to_back_on_one_stream():
+    """Twenty launches queued without a sync between them (as phase 4 of
+    ``chip_smoke.py`` times them) each combine their own splits: every
+    output equals the first, and the counters end at 0."""
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    q, k, v, p = (t.to(dev) for t in _torch(
+        *_inputs(rng, 8, 1056, 8, 4, 128, [1025] * 8), dtype=torch.bfloat16))
+    outs = [DA.decode_attention(q, k, v, p) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert not DA.arrivals(q.device, 64).any()

@@ -289,10 +289,12 @@ def test_chip_smoke_phases_on_cpu(chip_smoke):
     assert (pos == 1025).all()
 
     planned = cs.gather_launches(gathers, pair_gathers, rag_gathers)
-    assert {b for b, _ in planned} == {"graph", "vec", "codes", "scales"}
-    assert len(planned) == 2 * 2 * len(gathers[0]) + 3 * sum(
+    # one launch per span read, over all of its staged buffers
+    assert {b for b, _ in planned} == {("graph", "vec"),
+                                       ("graph", "codes", "scales")}
+    assert len(planned) == 2 * len(gathers[0]) + sum(
         len(ids) for batches in pair_gathers.values()
-        for ids, _ in batches) + 2 * sum(len(ids) for ids, _ in rag_gathers)
+        for ids, _ in batches) + sum(len(ids) for ids, _ in rag_gathers)
     long = cs.long_decode_inputs(B=2, S=300, H=q.shape[1], K=k.shape[2],
                                  hd=q.shape[2], dtype=q.dtype, device=cpu)
     recs = cs.phase_kernels(store, qstore, ds.data, ds.queries, planned, cpu,
