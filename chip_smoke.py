@@ -18,7 +18,7 @@ Phases, each printing its own lines:
    flat f32 twin of ``quant_topk``'s shape; for ``decode_attention``,
    phase 9's first decode call and a long-context shape), with times
    (CUDA events) beside the bound, the plain version's time and the
-   library call's time;
+   library call's time (for the top-k kernels the cuBLAS product alone);
 5. exact search (``mode="full"``, b=4, ef=48, doorbell 16, RDMA fabric,
    the CUDA doorbell gather) for ``search_mode`` graph and scan, one batch
    of 2000 at k=10, held against the same engine with the gather off;
@@ -49,14 +49,24 @@ planned from the engine's embedding of the prompts, and
 ``decode_attention`` is held at the inputs of phase 9's first decode
 call (captured there) and at a long-context shape (B=16, S=32768).
 
-With ``--sweep``, phase 4 also times every launch shape of the streaming
-kernels on the same inputs (lines ``[4 sweep]``): ``decode_attention`` at
-each number of warps sharing a kv head and of splits, each held against
-its plain output, beside SDPA, and at the long shape the card's power
-draw and clocks under the wrappers' cut and under SDPA; the gather
-beside one contiguous copy of the same bytes.  The wrappers' launch
-shapes (``decode_attention.ops.splits`` and ``warps_per_head``) were set
-from these lines.
+Each top-k time stands beside the product alone through cuBLAS
+(``torch.addmm`` over the same B x n_valid x D in f32, TF32 off), and
+beside the device time of each kernel the launch ran (``torch.profiler``):
+one kernel a call.
+
+With ``--sweep``, phase 4 also times every launch shape of the kernels on
+the same inputs (lines ``[4 sweep]``): ``decode_attention`` at each number
+of warps sharing a kv head and of splits, each held against its plain
+output, beside SDPA, and at the long shape the card's power draw and
+clocks under the wrappers' cut and under SDPA; the gather beside one
+contiguous copy of the same bytes; ``quant_topk`` and ``distance_topk``
+at every cut (tile x chunks) of each of their shapes, each held against
+its plain lists, the card's power and clocks under ``quant_topk`` at the
+flat shape, and each of the three calls through copies of the kernel with
+parts cut out (``TOPK_CUTS``: no candidates; no epilogue; no barrier or
+copies) beside an FMA loop from registers.  The wrappers' launch shapes
+(``decode_attention.ops.splits`` and ``warps_per_head``,
+``quant_topk.ops.launch_shape``) were set from these lines.
 
 Every kernel's launch counter is set to 0 just before each path is
 driven and read just after.  The last lines are the kernels' JSON record
@@ -68,8 +78,11 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,7 +116,7 @@ from repro_torch.kernels.gather_blocks import ops as GO  # noqa: E402
 from repro_torch.kernels.gather_blocks.ref import gather_blocks_ref  # noqa: E402
 from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
-    ids_agree_up_to_ties, quant_topk_ref)
+    dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
 from repro_torch.models import layers as LY  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     DECODE_SPAN, DocStore, RagServeEngine)
@@ -161,6 +174,31 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_split(fn, iters: int = 10) -> dict:
+    """Device milliseconds of one launch by kernel name (the name up to its
+    template arguments), and how many launches of it ``torch.profiler``
+    recorded over ``iters`` warmed calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[(<]", name.removeprefix("void "))[0]
+            name = name.split("::")[-1]
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + e.device_time_total / 1e3, n + e.count)
+    # a mean over the kernel records the trace holds, which can be fewer
+    # than the launches
+    return {name: (round(ms / n, 4), f"{n} of {iters} calls")
+            for name, (ms, n) in out.items()}
 
 
 def power_under(fn, ms: float, seconds: float = 3.0) -> dict:
@@ -464,13 +502,161 @@ def _gather_record(bufs, launches, device, timed: bool,
     return rec
 
 
-def _topk_buffers(B: int, S: int, k: int, device) -> tuple:
-    """The two top-k kernels' output and scratch buffers: (part_d, part_i,
-    out_d, out_i) for ``S`` chunks."""
-    return (torch.empty((B, S, k), dtype=torch.float32, device=device),
-            torch.empty((B, S, k), dtype=torch.int32, device=device),
-            torch.empty((B, k), dtype=torch.float32, device=device),
-            torch.empty((B, k), dtype=torch.int32, device=device))
+def product_ms(q, x) -> float:
+    """The product part alone through cuBLAS: ``torch.addmm`` of q2 - 2 q.x
+    over the same B x n_valid x D in f32 (TF32 off).  A yardstick for the
+    top-k kernels' product; no single torch call computes distance plus
+    top-k, and the port never calls this."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q2 = (q * q).sum(-1, keepdim=True)
+    xt = x.T
+    return device_ms(lambda: torch.addmm(q2, q, xt, alpha=-2.0), 20)
+
+
+def _topk_sweep(name: str, label: str, launch, want, B: int, nv: int,
+                kk: int, quant: bool, bound_ms: float,
+                power: bool = False) -> None:
+    """``--sweep``: one top-k kernel at every cut (tile x chunks) of one
+    shape, each held against the plain lists ``want`` as ``_topk_check``
+    holds it, beside the bound; ``launch(bufs, tile, S)`` launches once.
+    With ``power``, the card's draw and clocks under the wrappers' cut."""
+    default = QO.launch_shape(B, nv, kk, quant)
+    for tile in QO.TILES:
+        if not QO.ctas_per_sm(tile, kk, quant):
+            continue
+        n_tiles = max(-(-nv // tile), 1)
+        cuts = sorted({-(-n_tiles // -(-n_tiles // n)) for n in
+                       (1, 2, 4, 8, 16, 24, 33, 48, 66, 99, 132, 264)
+                       if n <= n_tiles} | ({default[1]} if tile == default[0]
+                                           else set()))
+        for S in cuts:
+            bufs = QO.buffers(B, kk, S, want[0].device)
+            launch(bufs, tile, S)
+            _topk_check(f"{name} {label} tile={tile} S={S}", bufs[2],
+                        bufs[3], *want, kk)
+            ms = device_ms(lambda: launch(bufs, tile, S), 10)
+            mark = " (the wrappers' cut)" if (tile, S) == default else ""
+            log(f"[4 sweep] {name} {label}: tile {tile}, {S} chunks of "
+                f"{-(-n_tiles // S)} tiles: {ms:.4f} ms, {bound_ms / ms:.3f} "
+                f"of the bound{mark}")
+    if power:
+        bufs = QO.buffers(B, kk, default[1], want[0].device)
+        fn = lambda: launch(bufs, *default)  # noqa: E731
+        ms = device_ms(fn, 10)
+        log(f"[4 sweep] power under {name} at the {label} shape "
+            f"({ms:.4f} ms a call): {json.dumps(power_under(fn, ms))}")
+
+
+# ``--sweep``: copies of kernels/csrc/topk_tile.cuh with parts cut out,
+# each keeping every FMA of the product alive (only "full" is right)
+_NONE_PASS = ("if (q0 + i < B && n0 + j < row_end)\n          pending",
+              "if (q0 + i < B && n0 + j < row_end && acc[r][c] < -1e30f)\n"
+              "          pending")
+_NO_EPILOGUE = ("    if (sl != n_slices - 1) continue;",
+                "    {\n      float sum = 0.f;\n#pragma unroll\n"
+                "      for (int r = 0; r < TM; ++r)\n#pragma unroll\n"
+                "        for (int c = 0; c < TN; ++c) sum += acc[r][c];\n"
+                "      if (sl != n_slices - 1 || sum != -12345.f) continue;\n"
+                "    }")
+_NO_BARRIER = ("    __syncthreads();   // slice t landed",
+               "    // slice t landed")
+_NO_COPIES = ("  auto issue = [&](int t) {\n",
+              "  auto issue = [&](int t) {\n"
+              "    if (t >= 2 * n_slices) { cp_commit(); return; }\n")
+TOPK_CUTS = {
+    "full": [],                   # as it ships
+    "product": [_NONE_PASS],      # no candidates: product, copies, epilogue
+    "no_epilogue": [_NONE_PASS, _NO_EPILOGUE],   # product, copies, barriers
+    "bare": [_NONE_PASS, _NO_EPILOGUE, _NO_BARRIER, _NO_COPIES]}
+FMA_LOOP = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256) fma_loop(float* out, int iters) {
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = threadIdx.x * 1e-3f + i;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = fmaf(acc[i], 0.999f, 1e-3f);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int fma_launch(void* out, int blocks, int iters) {
+  fma_loop<<<blocks, 256>>>(static_cast<float*>(out), iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def topk_cut(cut: str) -> str:
+    """kernels/csrc/topk_tile.cuh with ``cut``'s parts taken out."""
+    text = (_build.KERNELS_DIR / "csrc" / "topk_tile.cuh").read_text()
+    for old, new in TOPK_CUTS[cut]:
+        if old not in text:
+            raise RuntimeError(f"topk cut {cut}: the kernel no longer has "
+                               f"{old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def _build_cuts() -> dict:
+    """One kernel library per cut, and the FMA loop's, under
+    build/topk_cuts/ (one nvcc each, all started together)."""
+    out = ROOT / "build" / "topk_cuts"
+    jobs = {}
+    for cut in TOPK_CUTS:
+        root = out / cut
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(_build.KERNELS_DIR, root,
+                        ignore=shutil.ignore_patterns("__pycache__", "*.py"))
+        (root / "csrc" / "topk_tile.cuh").write_text(topk_cut(cut))
+        jobs[cut] = sorted(map(str, root.glob("*/csrc/*.cu")))
+    (out / "fma.cu").write_text(FMA_LOOP)
+    jobs["fma"] = [str(out / "fma.cu")]
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+         str(out / f"{name}.so"), *srcs], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name, srcs in jobs.items()}
+    libs = {}
+    for name, p in procs.items():
+        text = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on the {name} cut:\n{text}")
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        sigs = ({"fma_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]}
+                if name == "fma" else _build.SIGNATURES)
+        for fn, argtypes in sigs.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def topk_anatomy(calls, device) -> None:
+    """``--sweep``: each top-k call of ``calls`` ((label, launch(bufs, tile,
+    S), B, n_valid, k, quant, GFLOP)) at the wrappers' cut through every
+    cut of the kernel, and the FMA rate of a loop from registers."""
+    libs = _build_cuts()
+    shipped = _build.library()
+    try:
+        for cut in TOPK_CUTS:
+            _build._lib = libs[cut]
+            for label, launch, B, nv, k, quant, gflop in calls:
+                tile, S = QO.launch_shape(B, nv, k, quant)
+                bufs = QO.buffers(B, k, S, device)
+                ms = device_ms(lambda: launch(bufs, tile, S), 20)
+                log(f"[4 sweep] top-k cut {cut}, {label}: {ms:.4f} ms "
+                    f"({gflop / ms:.1f} TFLOP/s of the product)")
+    finally:
+        _build._lib = shipped
+    out = torch.empty(132 * 4 * 256, device=device)
+    fma, iters = libs["fma"], 4000
+    ms = device_ms(lambda: _build.check(
+        fma.fma_launch(out.data_ptr(), 132 * 4, iters), "fma_loop"), 5)
+    log(f"[4 sweep] FMA loop from registers (528 CTAs of 256 threads, 64 "
+        f"accumulators): {2.0 * out.numel() * iters * 64 / ms / 1e9:.1f} "
+        f"TFLOP/s")
 
 
 def _topk_check(name: str, d, i, dr, ir, kk: int) -> tuple:
@@ -488,11 +674,14 @@ def _topk_check(name: str, d, i, dr, ir, kk: int) -> tuple:
     return float(np.abs(d_h - dr_h[:, :kk]).max()), n_diff
 
 
-def _distance_record(shapes, device, timed: bool) -> dict:
+def _distance_record(shapes, device, timed: bool, sweep: bool = False,
+                     calls=None) -> dict:
     """distance_topk against its plain version at each of ``shapes``
     ((label, q, x, n_valid, k), the first one the throughput path's), in
     f32 and on bf16 inputs (against the plain version on the same
-    f32-cast inputs).  The record's numbers are the first shape's."""
+    f32-cast inputs), timed beside the cuBLAS product alone.  The record's
+    numbers are the first shape's.  ``sweep``: ``_topk_sweep`` at each
+    shape; ``calls`` collects each timed call for ``topk_anatomy``."""
     rec = {"name": "distance_topk", "route": "cuda",
            "source": "src/repro_torch/kernels/distance_topk/csrc/"
                      "distance_topk.cu",
@@ -515,12 +704,26 @@ def _distance_record(shapes, device, timed: bool) -> dict:
         bound_by = ("operations" if flops / PEAK_F32_FLOPS_S
                     >= nbytes / PEAK_BYTES_S else "bytes")
         bound_ms = max(flops / PEAK_F32_FLOPS_S, nbytes / PEAK_BYTES_S) * 1e3
-        ms = plain_ms = None
+        ms = plain_ms = gemm_ms = None
         if timed:
-            S = QO.n_chunks(B, nv)
-            bufs = _topk_buffers(B, S, kk, device)
-            ms = device_ms(lambda: DO._launch(q, x, kk, nv, *bufs, S), 20)
+            tile, S = QO.launch_shape(B, nv, kk, quant=False)
+            bufs = QO.buffers(B, kk, S, device)
+
+            def launch(bufs, tile, S, q=q, x=x, nv=nv, kk=kk):
+                DO._launch(q, x, kk, nv, bufs, tile, S)
+            ms = device_ms(lambda: launch(bufs, tile, S), 20)
             plain_ms = device_ms(lambda: distance_topk_ref(q, x, kk, nv), 5)
+            gemm_ms = product_ms(q, x[:nv])
+            log(f"[4 kernels] distance_topk {label}: tile {tile}, {S} "
+                f"chunks; device time by kernel "
+                f"{kernel_split(lambda: launch(bufs, tile, S))}")
+            if calls is not None:
+                calls.append((f"distance_topk {label}", launch, B, nv, kk,
+                              False, flops / 1e9))
+            if sweep:
+                want = distance_topk_ref(q, x, min(kk + 1, N), nv)
+                _topk_sweep("distance_topk", label, launch, want, B, nv, kk,
+                            False, bound_ms)
         rec["max_abs_err"] = max(rec["max_abs_err"], err, err_b)
         if j == 0:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -529,8 +732,8 @@ def _distance_record(shapes, device, timed: bool) -> dict:
             f"D={D} k={kk}: ids equal up to ties ({n_diff} tied positions "
             f"differ; bf16 inputs {n_diff_b}), max |d - plain| "
             f"{max(err, err_b):.3g} | "
-            + (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, " if timed
-               else "")
+            + (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS "
+               f"product alone {gemm_ms:.4f} ms, " if timed else "")
             + f"library none (no single torch call computes distance plus "
               f"top-k), bound {bound_ms:.4f} ms ({bound_by}, "
               f"{flops / 1e9:.2f} GFLOP)")
@@ -737,6 +940,7 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
             "scales": torch.as_tensor(qstore.qscale_buf, device=device)}
     records = [_gather_record(bufs, launches, device, timed, sweep)]
 
+    calls = []           # the timed top-k calls, for ``topk_anatomy``
     codes, scales, vecs, n_valid = flat_view(qstore, device)
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
     group = qstore.spec.quant_group
@@ -760,24 +964,38 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
                         >= nbytes / PEAK_BYTES_S else "bytes"),
            "library_ms": None}
     if timed:
-        S = QO.n_chunks(B, n_valid)
-        bufs_q = _topk_buffers(B, S, kk, device)
-        rec["ms"] = device_ms(lambda: QO._launch(
-            q, codes, scales, kk, group, n_valid, *bufs_q, S), 20)
+        tile, S = QO.launch_shape(B, n_valid, kk, quant=True)
+        bufs_q = QO.buffers(B, kk, S, device)
+
+        def launch(bufs, tile, S):
+            QO._launch(q, codes, scales, kk, group, n_valid, bufs, tile, S)
+        rec["ms"] = device_ms(lambda: launch(bufs_q, tile, S), 20)
         rec["plain_ms"] = device_ms(lambda: quant_topk_ref(
             q, codes, scales, kk, group, n_valid), 5)
+        gemm_ms = product_ms(q, dequantize_ref(codes[:n_valid],
+                                               scales[:n_valid], group))
+        log(f"[4 kernels] quant_topk: tile {tile}, {S} chunks; device time "
+            f"by kernel {kernel_split(lambda: launch(bufs_q, tile, S))}")
+        calls.append(("quant_topk flat", launch, B, n_valid, kk, True,
+                      flops / 1e9))
+        if sweep:
+            _topk_sweep("quant_topk", "flat", launch, quant_topk_ref(
+                q, codes, scales, kk + 1, group, n_valid), B, n_valid, kk,
+                True, rec["bound_ms"], power=True)
     records.append(rec)
     log(f"[4 kernels] quant_topk B={B} N={codes.shape[0]} n_valid={n_valid}"
         f" D={D} group={group} k={kk}: ids equal up to ties ({n_diff} tied"
         f" positions differ), max |d - plain| {q_err:.3g} | "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-           if timed else "")
+           f"cuBLAS product alone {gemm_ms:.4f} ms, " if timed else "")
         + f"library none, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']}, {flops / 1e9:.1f} GFLOP)")
     x_small = torch.as_tensor(data[:4096], device=device)
     records.append(_distance_record(
         [("throughput", q[:128], x_small, x_small.shape[0], 10),
-         ("flat f32", q, vecs, n_valid, k)], device, timed))
+         ("flat f32", q, vecs, n_valid, k)], device, timed, sweep, calls))
+    if sweep and timed:
+        topk_anatomy(calls, device)
     if decode_shapes:
         records.append(_decode_record(decode_shapes, device, timed, sweep))
     return records

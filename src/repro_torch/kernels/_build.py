@@ -36,13 +36,14 @@ SIGNATURES = {
     # table (n_bufs x (src, dst, row_bytes, n_rows), on the host), n_bufs,
     # ids, m, bad, stream
     "gather_spans_launch": [_P, _I, _P, _L, _P, _P],
-    # q, codes, scales, part_d, part_i, out_d, out_i,
-    # B, D, group, n_valid, k, n_chunks, stream
-    "quant_topk_launch": [_P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _P],
-    # q, x, part_d, part_i, out_d, out_i, B, D, n_valid, k, n_chunks, stream
-    "distance_topk_launch": [_P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
+    # q, codes, scales, part_d, part_i, arrivals, out_d, out_i,
+    # B, D, group, n_valid, k, n_chunks, tile, copy width, stream
+    "quant_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, x, part_d, part_i, arrivals, out_d, out_i,
+    # B, D, n_valid, k, n_chunks, tile, copy width, stream
+    "distance_topk_launch": [_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, pos, part_ml, part_acc, arrivals, out,
     # B, S, K, G, hd, n_split, split_len, warps, wph, bf16, stream
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P,

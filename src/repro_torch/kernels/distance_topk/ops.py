@@ -16,7 +16,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref
-from repro_torch.kernels.quant_topk.ops import K_MAX, n_chunks, to_contract
+from repro_torch.kernels.quant_topk.ops import (K_MAX, arrivals, buffers,
+                                                copy_width, launch_shape,
+                                                to_contract)
 from repro_torch.obs.trace import TRACER
 
 launches = 0
@@ -42,14 +44,15 @@ def _plain(q, x, k: int, n_valid: int):
     return to_contract(d, i, k)
 
 
-def _launch(q, x, k: int, n_valid: int, part_d, part_i, out_d, out_i,
-            S: int) -> None:
-    """Launch both passes on f32 inputs into preallocated buffers (no
-    checks, not counted)."""
+def _launch(q, x, k: int, n_valid: int, bufs, tile: int, S: int) -> None:
+    """One launch on f32 inputs into preallocated ``buffers`` (no checks,
+    not counted)."""
     B, D = q.shape
+    part_d, part_i, out_d, out_i = bufs
     err = _build.library().distance_topk_launch(
         q.data_ptr(), x.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), B, D, n_valid, k, S,
+        arrivals(q.device, -(-B // tile)).data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), B, D, n_valid, k, S, tile, copy_width(4 * D, q, x),
         _build.stream_handle(q.device))
     _build.check(err, "distance_topk")
 
@@ -60,16 +63,12 @@ def _cuda(q, x, k: int, n_valid: int):
         raise ValueError(f"distance_topk kernel keeps at most {K_MAX} per "
                          f"query, asked for {k}")
     B = q.shape[0]
-    S = n_chunks(B, n_valid)
-    dev = q.device
-    part_d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((B, S, k), dtype=torch.int32, device=dev)
-    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    tile, S = launch_shape(B, n_valid, k, quant=False)
+    bufs = buffers(B, k, S, q.device)
     if B:
-        _launch(q, x, k, n_valid, part_d, part_i, out_d, out_i, S)
+        _launch(q, x, k, n_valid, bufs, tile, S)
         launches += 1
-    return out_d, out_i
+    return bufs[2], bufs[3]
 
 
 def distance_topk(queries: torch.Tensor, database: torch.Tensor, k: int,

@@ -18,16 +18,109 @@ from repro_torch.obs.trace import TRACER
 
 launches = 0
 K_MAX = 128          # longest top-k list the kernel keeps per query
-_BQ, _BN = 64, 64    # query tile and database tile of csrc/quant_topk.cu
-_TARGET_CTAS = 4 * 132   # about four waves on the H100's 132 SMs
+# csrc/topk_tile.cuh: slices of 64 dimensions (rows padded by 4 floats),
+# 32 candidate slots a query, and at each square tile the threads, the
+# copy-ring stages and the registers a thread (``-Xptxas -v``, the larger
+# of the f32 and int8 instantiations).  A CTA may take 227 KB of shared
+# memory, an SM holds 228 KB, 1 KB of it reserved per CTA.
+TILES = (128, 64)    # queries x rows per CTA
+_SHAPE = {128: dict(threads=512, ring=2, regs=128),
+          64: dict(threads=256, ring=3, regs=152)}
+_DK, _CAND = 64, 32
+SMEM_MAX, SMEM_SM, SMEM_CTA = 232_448, 233_472, 1024
+SMS = 132            # the H100's SMs
+# the launch-shape cost, in row tiles of the chosen size, set from
+# ``python3 chip_smoke.py --sweep``: each chunk's fixed work (its first
+# tile sends every row through the candidate buffers, then its list is
+# written) and the last CTA's merge, which grows with the chunks
+MIN_TILES = 2        # shortest chunk, in row tiles, unless the rows are fewer
+CHUNK_TILES = 4.0    # a chunk's fixed work
+MERGE_TILES = 0.08   # the final merge, per chunk
+# arrival counters of the chunk merge, per (device, stream): zeroed once,
+# left at 0 by every launch
+_arrivals: dict = {}
 
 
-def n_chunks(B: int, n_valid: int) -> int:
-    """How many database chunks pass 1 splits the valid rows into: enough
-    CTAs for ~4 waves, never a chunk shorter than one tile."""
-    q_tiles = -(-B // _BQ)
-    n_tiles = max(-(-n_valid // _BN), 1)
-    return max(1, min(n_tiles, -(-_TARGET_CTAS // q_tiles)))
+def smem_bytes(tile: int, k: int, quant: bool) -> int:
+    """Shared memory of one CTA (``topk_tile::smem_bytes``)."""
+    R, ld = _SHAPE[tile]["ring"], _DK + 4
+    stages = (R * tile * _DK + 4 * (tile * ld + R * tile * (_DK // 4))
+              if quant else 4 * R * tile * ld)
+    return (4 * (R * tile * ld + 2 * tile) + stages
+            + 8 * tile * (k + _CAND) + 4 * (tile + 1))
+
+
+def ctas_per_sm(tile: int, k: int, quant: bool) -> int:
+    """CTAs of ``tile`` one SM holds: by shared memory and by registers
+    (0: the tile's shared memory does not fit at this k)."""
+    c = _SHAPE[tile]
+    smem = smem_bytes(tile, k, quant)
+    if smem > SMEM_MAX:
+        return 0
+    return min(SMEM_SM // (smem + SMEM_CTA),
+               65536 // (c["threads"] * c["regs"]))
+
+
+def chunks(B: int, n_valid: int, tile: int, k: int, quant: bool) -> int:
+    """How many chunks a launch at ``tile`` splits the valid rows into: the
+    cut with the least cost, whole waves of CTAs times (the tiles of a
+    chunk + ``CHUNK_TILES``) + ``MERGE_TILES`` a chunk, chunks of at least
+    ``MIN_TILES`` tiles, the fewest chunks among equal cuts.  Every chunk
+    holds rows."""
+    q_tiles = -(-B // tile)
+    n_tiles = max(-(-n_valid // tile), 1)
+    wave = SMS * ctas_per_sm(tile, k, quant)
+    best = None
+    for S in range(1, max(n_tiles // MIN_TILES, 1) + 1):
+        per = -(-n_tiles // S)        # as the kernel cuts the rows
+        if -(-n_tiles // per) != S:   # a chunk would be empty
+            continue
+        cost = (-(-(q_tiles * S) // wave) * (per + CHUNK_TILES)
+                + MERGE_TILES * S)
+        if best is None or cost < best[0]:
+            best = (cost, S)
+    return best[1]
+
+
+def launch_shape(B: int, n_valid: int, k: int, quant: bool) -> tuple:
+    """(tile, S) of one top-k launch: 128 x 128 tiles when there are enough
+    of them to give every SM's CTAs a chunk of ``MIN_TILES`` tiles and
+    their shared memory fits, else 64 x 64; then ``chunks``."""
+    big = TILES[0]
+    cps = ctas_per_sm(big, k, quant)
+    n_big = -(-B // big) * max(-(-n_valid // big), 1)
+    tile = big if cps and n_big >= SMS * cps * MIN_TILES else TILES[1]
+    return tile, chunks(B, n_valid, tile, k, quant)
+
+
+def copy_width(row_bytes: int, *tensors) -> int:
+    """The kernel's copy width: the widest of 16, 8 and 4 bytes that divides
+    a row and every tensor's start."""
+    for v in (16, 8, 4):
+        if row_bytes % v == 0 and all(t.data_ptr() % v == 0 for t in tensors):
+            return v
+    raise ValueError(f"top-k kernel copies 4-byte words at least: rows of "
+                     f"{row_bytes} B do not divide into them")
+
+
+def arrivals(device, n: int) -> torch.Tensor:
+    """The arrival counters of PyTorch's current stream on ``device``, at
+    least ``n`` of them, all 0 between launches."""
+    key = (device, _build.stream_handle(device))
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrivals[key] = buf
+    return buf
+
+
+def buffers(B: int, k: int, S: int, device) -> tuple:
+    """One launch's scratch and output: (part_d, part_i) (B, S, k), the
+    chunks' lists, and (out_d, out_i) (B, k)."""
+    return (torch.empty((B, S, k), dtype=torch.float32, device=device),
+            torch.empty((B, S, k), dtype=torch.int32, device=device),
+            torch.empty((B, k), dtype=torch.float32, device=device),
+            torch.empty((B, k), dtype=torch.int32, device=device))
 
 
 def _check(queries, codes, scales, k: int, group: int):
@@ -69,16 +162,17 @@ def _plain(queries, codes, scales, k: int, group: int, n_valid: int):
 
 
 def _launch(queries, codes, scales, k: int, group: int, n_valid: int,
-            part_d, part_i, out_d, out_i, S: int) -> None:
-    """Launch both passes into preallocated buffers (no checks, not
+            bufs, tile: int, S: int) -> None:
+    """One launch into preallocated ``buffers`` (no checks, not
     counted)."""
     B, D = queries.shape
-    lib = _build.library()
-    err = lib.quant_topk_launch(
+    part_d, part_i, out_d, out_i = bufs
+    err = _build.library().quant_topk_launch(
         queries.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), B, D, group, n_valid, k, S,
-        _build.stream_handle(queries.device))
+        part_d.data_ptr(), part_i.data_ptr(),
+        arrivals(queries.device, -(-B // tile)).data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), B, D, group, n_valid, k, S, tile,
+        copy_width(D, codes), _build.stream_handle(queries.device))
     _build.check(err, "quant_topk")
 
 
@@ -87,20 +181,21 @@ def _cuda(queries, codes, scales, k: int, group: int, n_valid: int):
     if k > K_MAX:
         raise ValueError(f"quant_topk kernel keeps at most {K_MAX} per "
                          f"query, asked for {k}")
+    if group % 4:
+        raise ValueError(f"quant_topk kernel dequantizes 4 codes at a time: "
+                         f"group must be a multiple of 4, got {group}")
     q = queries.to(torch.float32).contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     c = codes.contiguous()
     s = scales.to(torch.float32).contiguous()
     B = q.shape[0]
-    S = n_chunks(B, n_valid)
-    dev = q.device
-    part_d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((B, S, k), dtype=torch.int32, device=dev)
-    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    tile, S = launch_shape(B, n_valid, k, quant=True)
+    bufs = buffers(B, k, S, q.device)
     if B:
-        _launch(q, c, s, k, group, n_valid, part_d, part_i, out_d, out_i, S)
+        _launch(q, c, s, k, group, n_valid, bufs, tile, S)
         launches += 1
-    return out_d, out_i
+    return bufs[2], bufs[3]
 
 
 def quant_topk(queries: torch.Tensor, codes: torch.Tensor,

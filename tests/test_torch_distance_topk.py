@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.distance_topk import ops as DO  # noqa: E402
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref  # noqa: E402
+from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import ids_agree_up_to_ties  # noqa: E402
 
 RTOL = 1e-5
@@ -201,24 +202,116 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _twin_rows(x):
+    """Make the second half of the rows copies of the first half, and row 1
+    a copy of row 0: equal distances across tiles, chunks and inside one
+    tile.  Returns the id each row copies (its own id for the originals)."""
+    half = len(x) // 2
+    x[1] = x[0]
+    x[half:2 * half] = x[:half]
+    twin = np.arange(len(x))
+    twin[1] = 0
+    twin[half:2 * half] = twin[:half]
+    return twin
+
+
+def _assert_ties_to_lower_id(d, i, twin):
+    """The lists are ascending by (distance, id), and a copied row never
+    comes before (or without) the row it copies."""
+    for b in range(len(d)):
+        live = i[b] >= 0
+        db, ib = d[b][live], i[b][live]
+        assert (np.diff(db) >= 0).all()
+        same = db[1:] == db[:-1]
+        assert (ib[1:][same] > ib[:-1][same]).all()
+        pos = {int(v): p for p, v in enumerate(ib)}
+        for v, p in pos.items():
+            if twin[v] != v:
+                assert pos.get(int(twin[v]), len(ib)) < p, (b, v, twin[v])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,D,k,n_valid", [
-    *[(B, N, D, k, None) for B, N, D, k in SWEEP],
-    (5, 256, 32, 8, 1), (5, 256, 32, 8, 50), (4, 6, 16, 8, 3),
-    (128, 4096, 128, 10, None), (70, 3000, 128, 128, 2900),
-    (2000, 20000, 128, 20, 19000)])
-def test_distance_topk_kernel_on_card(B, N, D, k, n_valid):
+@pytest.mark.parametrize("B,N,D,k,n_valid,twins,tile,S", [
+    *[(B, N, D, k, None, False, None, None) for B, N, D, k in SWEEP],
+    (5, 256, 32, 8, 1, False, None, None),
+    (5, 256, 32, 8, 50, False, None, None),
+    (4, 6, 16, 8, 3, False, None, None),
+    (128, 4096, 128, 10, None, False, None, None),
+    (70, 3000, 128, 128, 2900, False, None, None),
+    (2000, 20000, 128, 20, 19000, False, None, None),
+    # equal distances across tiles, chunks and inside a tile
+    (128, 4096, 128, 10, None, True, None, None),
+    (129, 5000, 64, 16, 4999, True, 128, 3),
+    (129, 5000, 64, 16, 4999, True, 64, 7),
+    # k = K_MAX with n_valid inside a tile; B not a multiple of either tile
+    (130, 1000, 64, 128, 777, False, None, None),
+    (65, 3000, 32, 128, 2001, True, 64, 4),
+    # D = 960; rows of 120 and 132 bytes (8- and 4-byte copies)
+    (37, 2000, 960, 10, None, True, None, None),
+    (200, 3000, 960, 10, 2999, False, 128, 2),
+    (77, 3000, 30, 10, None, True, None, None),
+    (77, 3000, 30, 10, None, False, 128, 3),
+    (77, 3000, 33, 10, 2900, True, 64, 5),
+    (133, 1500, 33, 128, None, False, 64, 2)])
+def test_distance_topk_kernel_on_card(B, N, D, k, n_valid, twins, tile, S):
     dev = _cuda()
     rng = np.random.default_rng(B * 7 + N)
-    q, x = (torch.from_numpy(a).to(dev) for a in _inputs(rng, B, N, D))
-    before = DO.launches
-    d, i = DO.distance_topk(q, x, k, n_valid=n_valid)
-    torch.cuda.synchronize()
-    assert DO.launches == before + 1
+    q, x = _inputs(rng, B, N, D)
+    twin = _twin_rows(x) if twins else None
+    q, x = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
     nv = N if n_valid is None else n_valid
+    if tile is None:
+        before = DO.launches
+        d, i = DO.distance_topk(q, x, k, n_valid=n_valid)
+        torch.cuda.synchronize()
+        assert DO.launches == before + 1
+    else:
+        bufs = QO.buffers(B, k, S, dev)
+        DO._launch(q, x, k, nv, bufs, tile, S)
+        torch.cuda.synchronize()
+        d, i = bufs[2], bufs[3]
     dr, ir = distance_topk_ref(q, x, min(k + 1, N), nv)
     _assert_topk(d.cpu().numpy(), i.cpu().numpy(),
                  *_ext(dr.cpu().numpy(), ir.cpu().numpy(), k), atol=1e-3)
+    if twins:
+        _assert_ties_to_lower_id(d.cpu().numpy(), i.cpu().numpy(), twin)
+
+
+@pytest.mark.gpu
+def test_distance_topk_kernel_queued_launches_on_card():
+    """Twenty launches queued on one stream with no sync between them, at
+    the wrappers' cut and at the 128 x 128 tile, each give what one launch
+    of theirs gave: the chunk merge's arrival counters are left at 0 by
+    every launch.  The rows start one float into
+    their buffer, so the copies narrow to 4 bytes."""
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    q, x = (torch.from_numpy(a).to(dev) for a in _inputs(rng, 300, 20001,
+                                                         128))
+    x = x.flatten()[1:1 + 20000 * 128].view(20000, 128)
+    assert QO.copy_width(4 * 128, q, x) == 4
+    assert QO.launch_shape(300, 20000, 10, False)[1] > 1
+    one = DO.distance_topk(q, x, 10)
+    b1 = QO.buffers(300, 10, 3, dev)
+    DO._launch(q, x, 10, 20000, b1, 128, 3)
+    torch.cuda.synchronize()
+    before = DO.launches
+    outs = [DO.distance_topk(q, x, 10) for _ in range(20)]
+    bufs = [QO.buffers(300, 10, 3, dev) for _ in range(20)]
+    for b in bufs:
+        DO._launch(q, x, 10, 20000, b, 128, 3)
+    torch.cuda.synchronize()
+    assert DO.launches == before + 20
+    want = distance_topk_ref(q, x, 11, 20000)
+    for d, i in (one, (b1[2], b1[3])):
+        _assert_topk(d.cpu().numpy(), i.cpu().numpy(),
+                     *_ext(want[0].cpu().numpy(), want[1].cpu().numpy(), 10),
+                     atol=1e-3)
+    for d, i in outs:
+        assert torch.equal(d, one[0]) and torch.equal(i, one[1])
+    for b in bufs:
+        assert torch.equal(b[2], b1[2]) and torch.equal(b[3], b1[3])
+    assert not QO.arrivals(dev, 1).any()
 
 
 @pytest.mark.gpu

@@ -282,21 +282,58 @@ def test_gather_blocks_kernel_out_of_range_raises(bad_id):
     assert torch.equal(GO.gather_blocks(buf, ok), buf[[3, 7]])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,N,D,group,k,n_valid", [
-    *[(B, N, D, g, k, None) for B, N, D, g, k in QUANT_SWEEP],
-    (5, 256, 32, 8, 8, 1), (5, 256, 32, 8, 8, 50), (3, 5, 16, 8, 8, None),
-    (70, 3000, 128, 32, 128, 2900), (2000, 20000, 128, 32, 20, 19000)])
-def test_quant_topk_kernel_on_card(B, N, D, group, k, n_valid):
+def _twin_rows(x, codes=None):
+    """Make the second half of the rows copies of the first half, and row 1
+    a copy of row 0: equal distances across tiles, chunks and inside one
+    tile.  Returns the id each row copies (its own id for the originals)."""
+    N = len(codes if codes is not None else x)
+    half = N // 2
+    for a in (x, codes):
+        if a is not None:
+            a[1] = a[0]
+            a[half:2 * half] = a[:half]
+    twin = np.arange(N)
+    twin[1] = 0
+    twin[half:2 * half] = twin[:half]
+    return twin
+
+
+def _assert_ties_to_lower_id(d, i, twin):
+    """The lists are ascending by (distance, id), and a copied row never
+    comes before (or without) the row it copies: equal distances go to the
+    lower id."""
+    for b in range(len(d)):
+        live = i[b] >= 0
+        db, ib = d[b][live], i[b][live]
+        assert (np.diff(db) >= 0).all()
+        assert (ib[1:][db[1:] == db[:-1]] > ib[:-1][db[1:] == db[:-1]]).all()
+        pos = {int(v): p for p, v in enumerate(ib)}
+        for v, p in pos.items():
+            if twin[v] != v:
+                assert pos.get(int(twin[v]), len(ib)) < p, (b, v, twin[v])
+
+
+def _quant_case_on_card(B, N, D, group, k, n_valid, twins=False, tile=None,
+                        S=None):
+    """quant_topk on the card against its plain version: through the
+    wrapper (one launch counted) or, with ``tile``, one raw launch at that
+    tile and ``S`` chunks."""
     dev = _cuda()
     rng = np.random.default_rng(B * 7 + N)
     q, codes, scales = _quant_inputs(rng, B, N, D, group)
+    twin = _twin_rows(scales, codes) if twins else None
     qt, ct, st = (torch.from_numpy(a).to(dev) for a in (q, codes, scales))
-    before = QO.launches
-    d, i = QO.quant_topk(qt, ct, st, k, group, n_valid=n_valid)
-    torch.cuda.synchronize()
-    assert QO.launches == before + 1
     nv = N if n_valid is None else n_valid
+    if tile is None:
+        before = QO.launches
+        d, i = QO.quant_topk(qt, ct, st, k, group, n_valid=n_valid)
+        torch.cuda.synchronize()
+        assert QO.launches == before + 1
+    else:
+        bufs = QO.buffers(B, k, S, dev)
+        QO._launch(qt, ct, st, k, group, nv, bufs, tile, S)
+        torch.cuda.synchronize()
+        d, i = bufs[2], bufs[3]
     kk = min(k + 1, N)
     dr, ir = quant_topk_ref(qt, ct, st, kk, group, nv)
     dr, ir = dr.cpu().numpy(), ir.cpu().numpy()
@@ -305,3 +342,62 @@ def test_quant_topk_kernel_on_card(B, N, D, group, k, n_valid):
         ir = np.concatenate([ir, np.full((B, k + 1 - kk), -1)], 1)
     ir = np.where(np.isfinite(dr), ir, -1)
     _assert_topk(d.cpu().numpy(), i.cpu().numpy(), dr, ir, atol=1e-3)
+    if twins:
+        _assert_ties_to_lower_id(d.cpu().numpy(), i.cpu().numpy(), twin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,D,group,k,n_valid,twins,tile,S", [
+    *[(B, N, D, g, k, None, False, None, None)
+      for B, N, D, g, k in QUANT_SWEEP],
+    (5, 256, 32, 8, 8, 1, False, None, None),
+    (5, 256, 32, 8, 8, 50, False, None, None),
+    (3, 5, 16, 8, 8, None, False, None, None),
+    (70, 3000, 128, 32, 128, 2900, False, None, None),
+    (2000, 20000, 128, 32, 20, 19000, False, None, None),
+    # equal distances across tiles, chunks and inside a tile
+    (300, 20000, 128, 32, 20, None, True, None, None),
+    (129, 5000, 64, 16, 16, 4999, True, 128, 3),
+    (129, 5000, 64, 16, 16, 4999, True, 64, 7),
+    # k = K_MAX with n_valid inside a tile; B not a multiple of either tile
+    (130, 1000, 64, 16, 128, 777, False, None, None),
+    (65, 3000, 32, 8, 128, 2001, True, 64, 4),
+    # D = 960; rows of 40 and 36 bytes (8- and 4-byte copies)
+    (37, 2000, 960, 64, 10, None, True, None, None),
+    (200, 3000, 960, 32, 10, 2999, False, 128, 2),
+    (77, 3000, 40, 8, 10, None, True, None, None),
+    (77, 3000, 40, 8, 10, None, False, 128, 3),
+    (77, 3000, 36, 4, 10, 2900, True, 64, 5),
+    (133, 1500, 24, 8, 128, None, False, 64, 2)])
+def test_quant_topk_kernel_on_card(B, N, D, group, k, n_valid, twins, tile,
+                                   S):
+    _quant_case_on_card(B, N, D, group, k, n_valid, twins, tile, S)
+
+
+@pytest.mark.gpu
+def test_quant_topk_kernel_queued_launches_on_card():
+    """Twenty launches queued on one stream with no sync between them, at
+    the wrappers' cut and at the 128 x 128 tile, each give what one launch
+    of theirs gave: the chunk merge's arrival counters are left at 0 by
+    every launch."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    q, codes, scales = (torch.from_numpy(a).to(dev)
+                        for a in _quant_inputs(rng, 300, 20000, 128, 32))
+    assert QO.launch_shape(300, 20000, 20, True)[1] > 1
+    one = QO.quant_topk(q, codes, scales, 20, 32)
+    b1 = QO.buffers(300, 20, 3, dev)
+    QO._launch(q, codes, scales, 20, 32, 20000, b1, 128, 3)
+    torch.cuda.synchronize()
+    before = QO.launches
+    outs = [QO.quant_topk(q, codes, scales, 20, 32) for _ in range(20)]
+    bufs = [QO.buffers(300, 20, 3, dev) for _ in range(20)]
+    for b in bufs:
+        QO._launch(q, codes, scales, 20, 32, 20000, b, 128, 3)
+    torch.cuda.synchronize()
+    assert QO.launches == before + 20
+    for d, i in outs:
+        assert torch.equal(d, one[0]) and torch.equal(i, one[1])
+    for b in bufs:
+        assert torch.equal(b[2], b1[2]) and torch.equal(b[3], b1[3])
+    assert not QO.arrivals(dev, 1).any()
