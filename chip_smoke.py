@@ -42,12 +42,32 @@ Phases, each printing its own lines:
    greedy decode steps, every layer's decode attention through the CUDA
    ``decode_attention``), equal tokens from both; then a third call
    under ``torch.profiler``: the device's busy share over its decode
-   loop.
+   loop;
+10. insert at full size, on deep copies of phase 3's region: the
+    exact-scan engine of phase 5 and the int8 flat engine of phase 6 each
+    insert 256 held-out queries, then a burst of ``ov_cap + 8`` near
+    copies of one base row that fills its group's overflow region and
+    repacks it; a ``device="cpu"`` engine runs the same inserts.  Gids,
+    verb counts and the insert ledger against the charge rule, the
+    device region against the host's after the inserts and after the
+    repack, the flat view against a fresh sync, routing against the CPU
+    engine, self-recall@1, recall@10 against brute force over the grown
+    data, and an int8 search at ``rerank_m=256`` (``quant_topk``'s
+    large-k route); time an insert split into route, host write and
+    device twin, the repack, and the searches after it;
+11. bulk load: ``DHNSWEngine.build_streaming`` at ``benchmarks/
+    ingest.py``'s full ``run_load`` geometry (20 000 rows, 64
+    partitions, 8 chunks) against ``build`` of the same data, both
+    serving on the card: meta, regions and a search of 500 queries
+    bit-identical, and the ``LoadReport``'s counts.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
-planned from the engine's embedding of the prompts, and
-``decode_attention`` is held at the inputs of phase 9's first decode
-call (captured there) and at a long-context shape (B=16, S=32768).
+planned from the engine's embedding of the prompts, and the launches of
+the searches of phases 10 and 11 (recorded there, on the buffers they
+read); ``decode_attention`` is held at the inputs of phase 9's first
+decode call (captured there) and at a long-context shape (B=16,
+S=32768); ``quant_topk`` is also held at the flat shape at k = 256 and
+1024 and on group-2 codes, and ``distance_topk`` at k = 256.
 
 Each top-k time stands beside the product alone through cuBLAS
 (``torch.addmm`` over the same B x n_valid x D in f32, TF32 off), and
@@ -78,6 +98,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import dataclasses
 import json
@@ -118,6 +139,7 @@ from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
     dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
 from repro_torch.models import layers as LY  # noqa: E402
+from repro_torch.quant.codec import quantize_groups  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     DECODE_SPAN, DocStore, RagServeEngine)
 
@@ -144,6 +166,8 @@ RAG_ARCH = "qwen3-8b"
 RAG = dict(doc_len=240, prompt_len=64, batch=8, max_new_tokens=32,
            docs_per_query=4, n_calls=2)
 DECODE_LONG = dict(B=16, S=32768)   # decode_32k's length, batch cut to 16
+# phase 11: benchmarks/ingest.py's full run_load geometry (8 chunks)
+LOAD = dict(n=20_000, n_rep=64, n_chunks=8, n_queries=500, k=10)
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
 # they differ by at most one step of each element); in f32 at the gpu
@@ -406,12 +430,14 @@ EXACT_BUFS = ("graph", "vec")
 PAIR_BUFS = ("graph", "codes", "scales")
 
 
-def gather_launches(exact_gathers, pair_gathers, rag_gathers=()) -> list:
+def gather_launches(exact_gathers, pair_gathers, rag_gathers=(),
+                    recorded=()) -> list:
     """Every gather launch of the main path, one per span read, as
     (buffers, ids): phase 5's counted batch in each search mode (graph,
     then scan), then phase 8's counted run in each search mode
     (``pair_gathers``: mode -> the result of ``pair_path_gathers``), then
-    phase 9's retrieval (``rag_path_gathers``' result)."""
+    phase 9's retrieval (``rag_path_gathers``' result), then the launches
+    phases 10 and 11 recorded (``recorded_launches``)."""
     out = [(EXACT_BUFS, ids) for _ in ("graph", "scan")
            for ids in exact_gathers[0]]
     for batches in pair_gathers.values():
@@ -419,7 +445,7 @@ def gather_launches(exact_gathers, pair_gathers, rag_gathers=()) -> list:
                 for ids in round_ids]
     out += [(EXACT_BUFS, ids) for round_ids, _ in rag_gathers
             for ids in round_ids]
-    return out
+    return out + list(recorded)
 
 
 def _gather_record(bufs, launches, device, timed: bool,
@@ -493,7 +519,7 @@ def _gather_record(bufs, launches, device, timed: bool,
             del src, dst
         if bad.item():
             raise AssertionError("gather_spans flagged an id out of range")
-    log(f"[4 kernels] gather_spans, every span read of phases 5, 8 and 9 "
+    log(f"[4 kernels] gather_spans, every span read of phases 5 and 8-11 "
         f"({len(launches)} launches, "
         f"{sum(len(names) for names, _ in launches)} buffer reads): "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
@@ -705,7 +731,16 @@ def _distance_record(shapes, device, timed: bool, sweep: bool = False,
                     >= nbytes / PEAK_BYTES_S else "bytes")
         bound_ms = max(flops / PEAK_F32_FLOPS_S, nbytes / PEAK_BYTES_S) * 1e3
         ms = plain_ms = gemm_ms = None
-        if timed:
+        if timed and kk > QO.K_MAX:     # the large-k route: two kernels
+            ms = device_ms(lambda: DO.distance_topk(q, x, kk, n_valid=nv),
+                           10)
+            plain_ms = device_ms(lambda: distance_topk_ref(q, x, kk, nv), 3)
+            gemm_ms = product_ms(q, x[:nv])
+            split = kernel_split(lambda: DO.distance_topk(q, x, kk,
+                                                          n_valid=nv))
+            log(f"[4 kernels] distance_topk {label}: the large-k route; "
+                f"device time by kernel {split}")
+        elif timed:
             tile, S = QO.launch_shape(B, nv, kk, quant=False)
             bufs = QO.buffers(B, kk, S, device)
 
@@ -919,8 +954,51 @@ def _decode_record(shapes, device, timed: bool, sweep: bool = False) -> dict:
     return rec
 
 
+def wide_topk(q, codes, scales, vecs, n_valid: int, group: int,
+              timed: bool) -> None:
+    """``quant_topk`` at the flat shape past the path's k: at k = 256 and
+    1024 (the large-k route: the product into a distance matrix, then the
+    per-query select) and, at the path's k = 20, on group-2 codes of the
+    same rows quantized on the host by ``quant.codec.quantize_groups``
+    (the per-code scale path).  Each held against its plain version as
+    the path's call is, timed beside it and its bound."""
+    B, D = q.shape
+    c2, s2 = quantize_groups(vecs.cpu().numpy(), 2)
+    c2 = torch.as_tensor(c2, device=q.device)
+    s2 = torch.as_tensor(s2, device=q.device)
+    for label, c, s, g, k in (("k=256", codes, scales, group, 256),
+                              ("k=1024", codes, scales, group, 1024),
+                              ("group 2", c2, s2, 2, 20)):
+        kk = min(k, n_valid)
+        err, n_diff = _topk_check(
+            f"quant_topk {label}", *QO.quant_topk(q, c, s, kk, g,
+                                                  n_valid=n_valid),
+            *quant_topk_ref(q, c, s, min(kk + 1, c.shape[0]), g, n_valid),
+            kk)
+        flops = 2.0 * B * n_valid * D
+        nbytes = (B * D * 4 + n_valid * D + n_valid * (D // g) * 4
+                  + B * kk * 8)
+        bound = max(flops / PEAK_F32_FLOPS_S, nbytes / PEAK_BYTES_S) * 1e3
+        line = ""
+        if timed:
+            def fn(c=c, s=s, g=g, kk=kk):
+                return QO.quant_topk(q, c, s, kk, g, n_valid=n_valid)
+            ms = device_ms(fn, 10)
+            plain_ms = device_ms(lambda: quant_topk_ref(
+                q, c, s, kk, g, n_valid), 3)
+            line = (f"kernel {ms:.4f} ms ({bound / ms:.3f} of the bound), "
+                    f"plain {plain_ms:.4f} ms, device time by kernel "
+                    f"{kernel_split(fn)}, ")
+        route = "the large-k route" if kk > QO.K_MAX else "one launch"
+        log(f"[4 kernels] quant_topk {label} B={B} n_valid={n_valid} D={D} "
+            f"group={g} k={kk} ({route}): "
+            f"ids equal up to ties ({n_diff} tied positions differ), max "
+            f"|d - plain| {err:.3g} | {line}bound {bound:.4f} ms")
+
+
 def phase_kernels(store, qstore, data, queries, launches, device, *,
-                  k: int = 20, decode_shapes=(), sweep: bool = False) -> list:
+                  k: int = 20, decode_shapes=(), sweep: bool = False,
+                  extra_bufs=None) -> list:
     """Phase 4: each kernel against its plain version at the paths'
     shapes.  gather_blocks: every launch of phases 5, 8 and 9
     (``gather_launches``: one per span read) on its staged buffers (int32
@@ -931,13 +1009,18 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
     (``queries[:128]`` x ``data[:4096]``, k=10) and the flat f32 twin of
     the quant_topk call.  Top-k ids equal up to ties and distances within
     rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
-    ``_decode_record``), when given.  Times only on the card; ``sweep``
-    adds the ``--sweep`` lines."""
+    ``_decode_record``), when given.  ``extra_bufs`` names the buffers
+    of the launches phases 10 and 11 recorded.  Beside the path's calls,
+    ``quant_topk`` is held at the flat shape at k = 256 and 1024 (the
+    large-k route) and on group-2 codes of the same rows (the per-code
+    scale path), and ``distance_topk`` at k = 256 (``wide_topk``).  Times
+    only on the card; ``sweep`` adds the ``--sweep`` lines."""
     timed = device.type == "cuda"
     bufs = {"graph": torch.as_tensor(store.graph_buf, device=device),
             "vec": torch.as_tensor(store.vec_buf, device=device),
             "codes": torch.as_tensor(qstore.qvec_buf, device=device),
-            "scales": torch.as_tensor(qstore.qscale_buf, device=device)}
+            "scales": torch.as_tensor(qstore.qscale_buf, device=device),
+            **(extra_bufs or {})}
     records = [_gather_record(bufs, launches, device, timed, sweep)]
 
     calls = []           # the timed top-k calls, for ``topk_anatomy``
@@ -990,10 +1073,13 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
            f"cuBLAS product alone {gemm_ms:.4f} ms, " if timed else "")
         + f"library none, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']}, {flops / 1e9:.1f} GFLOP)")
+    wide_topk(q, codes, scales, vecs, n_valid, group, timed)
     x_small = torch.as_tensor(data[:4096], device=device)
     records.append(_distance_record(
         [("throughput", q[:128], x_small, x_small.shape[0], 10),
-         ("flat f32", q, vecs, n_valid, k)], device, timed, sweep, calls))
+         ("flat f32", q, vecs, n_valid, k),
+         ("flat f32 k=256", q, vecs, n_valid, 256)], device, timed, sweep,
+        calls))
     if sweep and timed:
         topk_anatomy(calls, device)
     if decode_shapes:
@@ -1084,7 +1170,8 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
     results must be equal).  ``gathers`` is ``main_path_gathers``' result:
     each batch must fetch the spans it planned, in one gather launch per
     round (span read), so phase 4 timed the launches made here.
-    Returns the gather launches of the path and the scan batch's stats."""
+    Returns the gather launches of the path and the scan batch's stats
+    (its recall@k under ``recall_at_k``)."""
     launches = 0
     round_ids, n_fetches = gathers
     B, n = ds.queries.shape[0], ds.data.shape[0]
@@ -1119,6 +1206,7 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
             f"{[w[0] for w in on['walls']]}, off "
             f"{[w[0] for w in off['walls']]} (off, on, on, off) | host "
             f"split (on, first run): {_host_split(st)} | equal to gather off")
+    st["recall_at_k"] = rec          # the scan batch's, phase 10's floor
     return {"gather_blocks": launches}, st
 
 
@@ -1493,6 +1581,478 @@ def phase_rag(ds, meta, store, device, *, cfg, doorbell: int, doc_len: int,
     return launches, gathers, capture.args
 
 
+# ------------------------------------------------------ insert and load
+
+class CallLog:
+    """While active, records every call of ``module.name`` (its buffers
+    and a clone of its block ids: ``gather_spans(bufs, ids)``); each call
+    still goes through to the real function, so its launches count."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self) -> "CallLog":
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self._call)
+        return self
+
+    def _call(self, bufs, ids):
+        self.calls.append((tuple(bufs), ids.clone()))
+        return self.real(bufs, ids)
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.real)
+
+
+def recorded_launches(calls, bufs: dict, tag: str) -> list:
+    """Recorded ``gather_spans`` calls as ``gather_launches`` entries: each
+    staged buffer gets a name in ``bufs`` (``tag`` and a serial number,
+    one per distinct tensor), so phase 4 holds and times the launches on
+    the very tensors they read."""
+    names = {}
+    for b, _ in calls:
+        for t in b:
+            if id(t) not in names:
+                names[id(t)] = f"{tag}{len(names)}"
+                bufs[names[id(t)]] = t
+    return [(tuple(names[id(t)] for t in b), ids) for b, ids in calls]
+
+
+class InsertClock:
+    """Host seconds of the insert path's parts while active, each device
+    part ended by a sync: ``route`` (the meta-HNSW routing), ``host``
+    (the host region's writes: ``layout.insert_vector`` and the int8
+    mirror's re-quantize), ``device`` (the device twin's scatters) and
+    ``repack`` (the whole repack verb, its re-stage included; the parts
+    inside it are not counted again)."""
+
+    PARTS = ("route", "host", "device", "repack")
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.sec = dict.fromkeys(self.PARTS, 0.0)
+        self._in_repack = False
+        self._undo = []
+
+    def _sync(self) -> None:
+        if self.eng.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def _wrap(self, owner, name: str, part: str, instance: bool) -> None:
+        real = getattr(owner, name)
+
+        def timed(*a, **kw):
+            if self._in_repack:
+                return real(*a, **kw)
+            self._in_repack = part == "repack"
+            t0 = time.perf_counter()
+            try:
+                out = real(*a, **kw)
+                self._sync()
+            finally:
+                self._in_repack = False
+            self.sec[part] += time.perf_counter() - t0
+            return out
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, real, instance))
+
+    def __enter__(self) -> "InsertClock":
+        c = self.eng.client
+        for owner, name, part, inst in (
+                (c, "_route", "route", True),
+                (LA, "insert_vector", "host", False),
+                (LA, "refresh_quant_blocks", "host", False),
+                (DS, "overflow_append", "device", False),
+                (DS, "overflow_append_quant", "device", False),
+                (c.pool, "repack", "repack", True)):
+            self._wrap(owner, name, part, inst)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, real, inst in reversed(self._undo):
+            if inst:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, real)
+        self._undo = []
+
+
+def _timed_insert(eng, vecs) -> tuple:
+    """``eng.insert(vecs)`` under an ``InsertClock``: (gids, wall s, the
+    clock's parts)."""
+    on_card = eng.device.type == "cuda"
+    with InsertClock(eng) as clock:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gids = eng.insert(vecs)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return gids, wall, clock.sec
+
+
+def _region_equal(pool, what: str) -> None:
+    """The pool's device region, copied back to the host, equals the host
+    region bit for bit: graph and vector blocks, the int8 codes and
+    scales when attached, and the meta table (``read_meta``)."""
+    st = pool.store
+    pairs = [("graph", pool._g_dev, st.graph_buf),
+             ("vec", pool._v_dev, st.vec_buf),
+             ("meta", pool.read_meta(), st.meta_table)]
+    if pool._qv_dev is not None:
+        pairs += [("codes", pool._qv_dev, st.qvec_buf),
+                  ("scales", pool._qs_dev, st.qscale_buf)]
+    for name, dev, host in pairs:
+        got = dev.cpu().numpy()
+        if (got.dtype != host.dtype or got.shape != host.shape
+                or got.tobytes() != np.ascontiguousarray(host).tobytes()):
+            raise AssertionError(f"{what}: the device {name} region differs "
+                                 f"from the host's")
+
+
+def _flat_equal_to_sync(client, what: str) -> int:
+    """The int8 flat view grown by inserts (codes, scales and the payload
+    twin, row for row by region row) equals a fresh ``_sync_flat`` of the
+    same store.  Returns the view's rows."""
+    from repro_torch.core.cost_model import NetLedger
+    n = client._flat_n
+    grown = [t[:n].cpu() for t in (client._flat_codes, client._flat_scales,
+                                   client._flat_cols)]
+    rows = client._flat_idx[:n].copy()
+    client._sync_flat(NetLedger(client.cfg.fabric))
+    if client._flat_n != n:
+        raise AssertionError(f"{what}: flat view of {n} rows, a fresh sync "
+                             f"has {client._flat_n}")
+    at = {int(r): j for j, r in enumerate(client._flat_idx[:n])}
+    if len(at) != n or set(at) != {int(r) for r in rows}:
+        raise AssertionError(f"{what}: the flat view's rows differ from a "
+                             f"fresh sync's")
+    perm = torch.as_tensor([at[int(r)] for r in rows])
+    fresh = (client._flat_codes, client._flat_scales, client._flat_cols)
+    for name, old, new in zip(("codes", "scales", "cols"), grown, fresh):
+        if not torch.equal(old, new[:n].cpu()[perm]):
+            raise AssertionError(f"{what}: flat {name} differ from a fresh "
+                                 f"sync")
+    return n
+
+
+def brute_force_gt(data: np.ndarray, queries: np.ndarray, k: int,
+                   device) -> np.ndarray:
+    """Exact top-k ids of ``queries`` over ``data`` (squared L2 in f32,
+    TF32 off), computed on ``device`` in blocks of queries."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.as_tensor(data, device=device)
+    x2 = (x * x).sum(-1)
+    out = []
+    for s in range(0, len(queries), 256):
+        q = torch.as_tensor(queries[s:s + 256], device=device)
+        d = (q * q).sum(-1, keepdim=True) - 2.0 * (q @ x.T) + x2[None]
+        out.append(torch.topk(d, k, largest=False).indices.cpu().numpy())
+    return np.concatenate(out)
+
+
+def burst_target(eng, data: np.ndarray, n_burst: int) -> int:
+    """A base row whose partition a burst of ``n_burst`` near copies can
+    overflow and repack without a full rebuild: both partitions of its
+    group (the one ``data[t]`` routes to and its partner) hold at most
+    ``np_max - n_burst`` rows, overflow included.  The first such row in
+    row order."""
+    store, spec = eng.store, eng.store.spec
+    mt = store.meta_table
+    ov = mt[:, LA.MT_OV_A] + mt[:, LA.MT_OV_B]
+    size = np.asarray(store.n_base) + ov
+    fits = np.zeros(spec.n_partitions, bool)
+    for p in range(spec.n_partitions):
+        g = int(mt[p, LA.MT_GROUP])
+        fits[p] = all(size[q] + n_burst <= spec.np_max
+                      for q in (2 * g, 2 * g + 1) if q < spec.n_partitions)
+    cand = np.nonzero(fits[eng.meta.assignments])[0]
+    for t in cand[:64]:
+        pid = int(eng.client._route(eng.client._t(data[t:t + 1]), b=1)[0, 0])
+        if fits[pid]:
+            return int(t)
+    raise AssertionError("no partition can take the burst without a full "
+                         "rebuild")
+
+
+def _self_recall(eng, vecs, gids, k: int = 10) -> float:
+    """Share of ``vecs`` whose nearest result is their own gid."""
+    _, g, _ = eng.search(vecs, k=k)
+    return float(np.mean(g[:, 0] == np.asarray(gids)))
+
+
+def _insert_line(label: str, n: int, wall: float, sec: dict) -> str:
+    other = wall - sum(sec.values())
+    return (f"{label}: {n} inserts in {wall:.4f} s, "
+            f"{wall / n * 1e6:.1f} us an insert = route "
+            f"{sec['route'] / n * 1e6:.1f} + host write "
+            f"{sec['host'] / n * 1e6:.1f} + device twin "
+            f"{sec['device'] / n * 1e6:.1f} + repack "
+            f"{sec['repack'] / n * 1e6:.1f} + other {other / n * 1e6:.1f} us"
+            f" (repack {sec['repack']:.4f} s)")
+
+
+def phase_insert(ds, meta, store, qstore, device, *, k: int, doorbell: int,
+                 scan_recall: float, n_held: int = 256, burst_extra: int = 8,
+                 seed: int = 1) -> tuple:
+    """Phase 10: insert at full size, on deep copies of phase 3's store
+    and qstore (no other phase sees a mutation).  The exact-scan engine
+    of phase 5 (the CUDA gather on) and the int8 flat engine of phase 6
+    (its flat view synced first) each insert ``queries[:n_held]``, then a
+    burst of ``ov_cap + burst_extra`` near copies of one base row
+    (``data[t] + 0.0005 N(0, 1)``, ``burst_target``: its group repacks
+    without a full rebuild).  A ``device="cpu"`` port engine runs the
+    same inserts on a third copy: the routed partitions must agree up to
+    ties in the meta distances.  Checks: gids, verb counts, the insert
+    ledger against the charge rule, the device region against the host
+    region after the inserts and after the repack, the flat view against
+    a fresh sync, self-recall@1 in scan mode, recall@10 over all queries
+    against brute force over the grown data, and an int8 search with
+    ``rerank_m=256`` (the large-k route of ``quant_topk``).  Returns
+    (launches of the post-insert searches, the gather launches they made
+    as ``gather_launches`` entries, their buffers)."""
+    n0, dim = ds.data.shape
+    held = np.ascontiguousarray(ds.queries[:n_held])
+    on_card = device.type == "cuda"
+    spec = store.spec
+    rng = np.random.default_rng(seed)
+
+    def exact_engine(dev):
+        return DHNSWEngine(exact_config(meta.n_partitions, doorbell, "scan"),
+                           device=dev).adopt_built(
+            meta, copy.deepcopy(store), ds.data)
+    eng = exact_engine(device)
+    qcfg = EngineConfig(mode="full", search_mode="scan", b=6,
+                        n_rep=meta.n_partitions, quant="int8",
+                        quant_kernel="auto", cache_frac=0.6, exact_frac=0.25,
+                        doorbell=doorbell, fabric=RDMA_100G)
+    q8 = DHNSWEngine(qcfg, device=device).adopt_built(
+        meta, copy.deepcopy(qstore), ds.data)
+    twin = exact_engine(torch.device("cpu"))
+    q8.search(ds.queries[:8], k=k)              # the flat view, synced
+    wire = {"exact": dim * 4 + 8, "cpu": dim * 4 + 8,
+            "int8": dim * 4 + 8 + dim + dim // qstore.spec.quant_group * 4}
+    engines = (("exact", eng), ("int8", q8), ("cpu", twin))
+    launches = {name: 0 for name in KERNEL_OPS}
+    n_burst = spec.ov_cap + burst_extra
+    burst = None
+    for label in ("held-out", "burst"):
+        if label == "burst":     # the target, after the held-out inserts
+            t = burst_target(eng, ds.data, n_burst)
+            burst = (ds.data[t][None] + 0.0005 * rng.standard_normal(
+                (n_burst, dim))).astype(np.float32)
+        vecs = held if label == "held-out" else burst
+        for name, e in engines:
+            n_pre = e.client._n0 + len(e.client._extra)
+            totals = dict(e.pool.totals)
+            verbs = dict(e.pool.verbs)
+            gids, wall, sec = _timed_insert(e, vecs)
+            if not np.array_equal(gids, np.arange(n_pre, n_pre + len(vecs))):
+                raise AssertionError(f"insert {name} {label}: gids {gids[:3]}"
+                                     f"... not from {n_pre}")
+            repacks = e.pool.verbs["repack"] - verbs.get("repack", 0)
+            # the append that finds the region full lands nothing and is
+            # not counted; its row is appended again after the repack
+            n_app = len(vecs)
+            if e.pool.verbs["append"] - verbs.get("append", 0) != n_app:
+                raise AssertionError(f"insert {name} {label}: "
+                                     f"{dict(e.pool.verbs)}, want {n_app} "
+                                     f"more appends")
+            if label == "burst" and repacks < 1:
+                raise AssertionError(f"insert {name}: the burst repacked "
+                                     f"nothing")
+            per = wire[name]
+            want = {"round_trips": n_app, "descriptors": n_app,
+                    "bytes": n_app * per}
+            moved = {key: e.pool.totals[key] - totals[key] for key in totals}
+            net = {key: e._last_insert_net[key] for key in want}
+            if moved != want or net != want:
+                raise AssertionError(f"insert {name} {label}: ledger {net}, "
+                                     f"pool totals moved {moved}, want "
+                                     f"{n_app} writes of {per} B")
+            if name != "cpu":
+                _region_equal(e.pool, f"insert {name} {label}")
+            what = _insert_line(f"{name} {label}", len(vecs), wall, sec)
+            log(f"[10 insert] {what} | {n_app} appends, {repacks} repacks, "
+                f"{n_app} writes of "
+                f"{per} B charged"
+                + (" | device region equal to the host's" if name != "cpu"
+                   else ""))
+            if name == "int8" and label == "held-out":
+                n_flat = _flat_equal_to_sync(e.client, "insert int8")
+                log(f"[10 insert] int8 flat view after {len(vecs)} inserts: "
+                    f"{n_flat} rows equal to a fresh sync (codes, scales, "
+                    f"payload twin)")
+
+    # routing against the CPU twin: equal up to ties in meta distances
+    reps = meta.graph.vectors
+    diff = [g for g, p in eng.client._extra_pid.items()
+            if twin.client._extra_pid[g] != p]
+    for g in diff:
+        v = eng.client._extra[g]
+        d = [float(((v - reps[p]) ** 2).sum()) for p in
+             (eng.client._extra_pid[g], twin.client._extra_pid[g])]
+        if abs(d[0] - d[1]) > 1e-5 * max(d):
+            raise AssertionError(f"insert: gid {g} routed to {d} on the card "
+                                 f"and the CPU beyond a tie")
+    log(f"[10 insert] routed partitions equal to the CPU engine's for "
+        f"{len(eng.client._extra_pid) - len(diff)} of "
+        f"{len(eng.client._extra_pid)} rows ({len(diff)} at ties)")
+
+    # searches after the inserts: the gather launches are recorded
+    grown = np.concatenate([ds.data, held, burst])
+    gt = brute_force_gt(grown, ds.queries, k, device)
+    bufs = {}
+
+    def timed(e, vecs):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = e.search(vecs, k=k)
+        if on_card:
+            torch.cuda.synchronize()
+        return (*out, time.perf_counter() - t0)
+
+    with CallLog(GO, "gather_spans") as calls:
+        _reset_launches()
+        self_q = _self_recall(eng, held[:64], n0 + np.arange(len(held[:64])))
+        self_b = _self_recall(eng, burst[:32],
+                              np.arange(n0 + n_held, n0 + n_held + 32))
+        d, g, st, wall = timed(eng, ds.queries)
+        n_exact = _launches()
+    recorded = recorded_launches(calls.calls, bufs, "insert.")
+    if on_card and n_exact["gather_blocks"] != len(calls.calls):
+        raise AssertionError("insert: gather launches and recorded calls "
+                             "differ")
+    _check_output(d, g, len(ds.queries), k, len(grown), "insert exact")
+    rec = recall_at_k(g, gt)
+    if self_q != 1.0 or self_b != 1.0:
+        raise AssertionError(f"insert exact: self-recall@1 {self_q} "
+                             f"(held-out) / {self_b} (burst), want 1.0")
+    if rec < scan_recall - 0.01:
+        raise AssertionError(f"insert exact: recall@{k} {rec} below phase "
+                             f"5's {scan_recall} - 0.01")
+    log(f"[10 insert] exact scan after the inserts: self-recall@1 "
+        f"{self_q:.4f} (held-out[:64]) {self_b:.4f} (burst[:32]) | "
+        f"recall@{k} {rec:.4f} vs brute force over {len(grown)} rows "
+        f"(phase 5 scan {scan_recall:.4f}) | search wall {wall:.4f} s | "
+        f"{_counted(st)} | gather launches {n_exact['gather_blocks']} "
+        f"(3 searches)")
+
+    _reset_launches()
+    s8_q = _self_recall(q8, held[:64], n0 + np.arange(len(held[:64])))
+    s8_b = _self_recall(q8, burst[:32],
+                        np.arange(n0 + n_held, n0 + n_held + 32))
+    d8, g8, st8, wall8 = timed(q8, ds.queries)
+    n8 = _launches()
+    q8.client.cfg = dataclasses.replace(qcfg, rerank_m=256)
+    try:
+        d9, g9, st9, wall9 = timed(q8, ds.queries)
+    finally:
+        q8.client.cfg = qcfg
+    n9 = {key: v - n8[key] for key, v in _launches().items()}
+    for key in launches:
+        launches[key] += n_exact[key] + n8[key] + n9[key]
+    want = "cuda" if on_card else "ref"
+    if st8["stage1_impl"] != want or st9["stage1_impl"] != want:
+        raise AssertionError(f"insert int8: stage 1 {st8['stage1_impl']} / "
+                             f"{st9['stage1_impl']}")
+    if on_card and (n9["quant_topk"] != 2 or st9["rerank_m"] != 256):
+        raise AssertionError(f"insert int8: rerank_m=256 made "
+                             f"{n9['quant_topk']} quant_topk launches, want "
+                             f"the large-k route's 2")
+    if s8_q != 1.0:
+        raise AssertionError(f"insert int8: self-recall@1 {s8_q} of the "
+                             f"held-out rows, want 1.0")
+    _check_output(d8, g8, len(ds.queries), k, len(grown), "insert int8")
+    _check_output(d9, g9, len(ds.queries), k, len(grown), "insert int8 m256")
+    r8, r9 = recall_at_k(g8, gt), recall_at_k(g9, gt)
+    if r9 < r8:
+        raise AssertionError(f"insert int8: recall@{k} {r9} at rerank_m=256"
+                             f" below {r8} at m={st8['rerank_m']}")
+    log(f"[10 insert] int8 flat after the inserts: self-recall@1 "
+        f"{s8_q:.4f} (held-out[:64]) {s8_b:.4f} (burst[:32], reported) | "
+        f"recall@{k} {r8:.4f} at m={st8['rerank_m']} (wall {wall8:.4f} s), "
+        f"{r9:.4f} at m=256 (wall {wall9:.4f} s, quant_topk launches "
+        f"{n9['quant_topk']}: the large-k route) | flat_rows "
+        f"{st8['flat_rows']} | launches {launches}")
+    del eng, q8, twin
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, recorded, bufs
+
+
+def phase_load(device, *, n: int, n_rep: int, n_chunks: int,
+               n_queries: int, k: int, doorbell: int,
+               seed: int = SEED) -> tuple:
+    """Phase 11: ``DHNSWEngine.build_streaming`` at ``benchmarks/
+    ingest.py``'s full ``run_load`` geometry, and ``build`` of the same
+    data, both serving on ``device`` (the exact-scan config, the CUDA
+    gather on): meta, host and device regions, and a search of
+    ``n_queries`` (gids and distances) must be bit-identical; the
+    ``LoadReport`` counts ``n_chunks`` chunks, none failed, and a peak
+    builder memory under half the dataset.  Returns (launches, the
+    searches' gather launches as ``gather_launches`` entries, their
+    buffers)."""
+    from repro_torch.ingest import chunked_source
+    ds = sift_like(n=n, n_queries=n_queries, seed=seed)
+    cfg = dataclasses.replace(exact_config(n_rep, doorbell, "scan"),
+                              seed=seed)
+    t0 = time.perf_counter()
+    mem = DHNSWEngine(cfg, device=device).build(ds.data)
+    t1 = time.perf_counter()
+    rows = n // n_chunks
+    stream = DHNSWEngine(cfg, device=device).build_streaming(
+        chunked_source(ds.data, rows), chunk_rows=rows)
+    t2 = time.perf_counter()
+    rep = stream.last_load_report
+    for a in ("reps", "rep_ids", "assignments"):
+        if not np.array_equal(getattr(mem.meta, a), getattr(stream.meta, a)):
+            raise AssertionError(f"load: meta {a} differ")
+    for a in ("vectors", "adjacency", "node_level"):
+        if (getattr(mem.meta.graph, a).tobytes()
+                != getattr(stream.meta.graph, a).tobytes()):
+            raise AssertionError(f"load: meta graph {a} differ")
+    for a in ("graph_buf", "vec_buf", "meta_table", "n_base"):
+        x, y = getattr(mem.store, a), getattr(stream.store, a)
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            raise AssertionError(f"load: region {a} differs")
+    for a in ("_g_dev", "_v_dev", "_mt_dev"):
+        if not torch.equal(getattr(mem.pool, a), getattr(stream.pool, a)):
+            raise AssertionError(f"load: device region {a} differs")
+    if (rep.chunks_total, rep.chunks_ok, rep.chunks_failed) != (
+            n_chunks, n_chunks, 0):
+        raise AssertionError(f"load: report {rep}")
+    if not rep.peak_builder_bytes < rep.dataset_bytes / 2:
+        raise AssertionError(f"load: peak builder {rep.peak_builder_bytes} "
+                             f"B of a {rep.dataset_bytes} B dataset")
+    launches = {name: 0 for name in KERNEL_OPS}
+    with CallLog(GO, "gather_spans") as calls:
+        out = []
+        for e in (mem, stream):
+            out.append(_search(e, ds.queries, k, device))
+            for key in launches:
+                launches[key] += out[-1][4][key]
+    (d0, g0, st0, w0, _), (d1, g1, st1, w1, _) = out
+    if not (np.array_equal(d0, d1) and np.array_equal(g0, g1)
+            and _counted_equal(st0, st1)):
+        raise AssertionError("load: streamed and in-memory engines search "
+                             "differently")
+    _check_output(d0, g0, n_queries, k, n, "load")
+    bufs = {}
+    recorded = recorded_launches(calls.calls, bufs, "load.")
+    log(f"[11 load] {n} rows, n_rep {n_rep}: build {t1 - t0:.2f} s, "
+        f"build_streaming {t2 - t1:.2f} s in {rep.chunks_total} chunks of "
+        f"{rows} (0 failed), peak builder {rep.peak_builder_bytes / 1e6:.3f}"
+        f" MB of a {rep.dataset_bytes / 1e6:.3f} MB dataset | meta, host "
+        f"and device regions bit-identical | {n_queries} queries: gids and "
+        f"distances bit-identical, recall@{k} "
+        f"{recall_at_k(g0, ds.gt_ids[:, :k]):.4f}, wall {w0:.4f} / "
+        f"{w1:.4f} s | gather launches {launches['gather_blocks']}")
+    return launches, recorded, bufs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -1529,7 +2089,15 @@ def main(argv=None) -> int:
         doorbell=FULL["doorbell"], **RAG)
     launches["gather_blocks"] += rag_launches["gather_blocks"]
     launches["decode_attention"] = rag_launches["decode_attention"]
-    planned = gather_launches(gathers, pair_gathers, rag_gathers)
+    ins_launches, ins_recorded, ins_bufs = phase_insert(
+        ds, meta, store, qstore, device, k=FULL["k"],
+        doorbell=FULL["doorbell"], scan_recall=scan_stats["recall_at_k"])
+    load_launches, load_recorded, load_bufs = phase_load(
+        device, doorbell=FULL["doorbell"], **LOAD)
+    for name in launches:
+        launches[name] += ins_launches[name] + load_launches[name]
+    planned = gather_launches(gathers, pair_gathers, rag_gathers,
+                              ins_recorded + load_recorded)
     if launches["gather_blocks"] != len(planned):
         raise AssertionError(f"{launches['gather_blocks']} gather launches on "
                              f"the main path, {len(planned)} span reads "
@@ -1542,7 +2110,8 @@ def main(argv=None) -> int:
                                     **DECODE_LONG, H=q.shape[1],
                                     K=k.shape[2], hd=q.shape[2],
                                     dtype=q.dtype, device=device))],
-                            sweep=args.sweep)
+                            sweep=args.sweep,
+                            extra_bufs={**ins_bufs, **load_bufs})
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] <= 0:

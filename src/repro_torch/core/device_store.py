@@ -1,11 +1,10 @@
 """Device-side store in torch: fetched-span decode + per-partition search.
 
-Port of ``repro/core/device_store.py`` except the overflow-append twins
-(``overflow_append``, ``overflow_append_quant``), which come with insert.
-A fetch span is ``(fetch_blocks, gblk)`` int32 + ``(fetch_blocks, vblk)``
-float32 (or int8 codes + ``(fetch_blocks, n_qgroups)`` f32 scales for the
-quantized tier); every function here takes a leading batch of spans/pairs
-where the reference ``vmap``s one.
+Port of ``repro/core/device_store.py``.  A fetch span is
+``(fetch_blocks, gblk)`` int32 + ``(fetch_blocks, vblk)`` float32 (or int8
+codes + ``(fetch_blocks, n_qgroups)`` f32 scales for the quantized tier);
+every function here takes a leading batch of spans/pairs where the
+reference ``vmap``s one.
 
 Kept from the reference on purpose:
 * padding pairs carry query index ``B``; JAX clamps that gather, torch
@@ -15,7 +14,8 @@ Kept from the reference on purpose:
 * the serve paths compute ``sum((v - q)^2)``; negative row addresses are
   clamped to 0 before gathers (``maximum(rows, 0)``).
 
-``write_slots`` and ``write_slots_quant`` update the cache tensors in
+``write_slots``, ``write_slots_quant`` and the overflow-append twins
+(``overflow_append``, ``overflow_append_quant``) update their tensors in
 place (the reference returns new arrays and donates the old ones).
 """
 from __future__ import annotations
@@ -347,3 +347,26 @@ def write_slots_quant(spec: LayoutSpec, cache_qg, cache_qv, cache_qs,
     cache_qv[slots] = qv_blocks
     cache_qs[slots] = qs_blocks
     return cache_qg, cache_qv, cache_qs
+
+
+def overflow_append(spec: LayoutSpec, graph_buf, vec_buf, vec, gid,
+                    vec_block, vec_off, gid_block, gid_off):
+    """Device twin of ``layout.insert_vector``: one-slot scatter into the
+    shared overflow region, in place (coords from
+    ``overflow_write_coords``)."""
+    vec_buf[vec_block, vec_off:vec_off + spec.dim] = vec
+    graph_buf[gid_block, gid_off] = gid
+    return graph_buf, vec_buf
+
+
+def overflow_append_quant(spec: LayoutSpec, qvec_buf, qscale_buf, vec,
+                          vec_block, vec_off):
+    """Device twin of the quantized mirror update for one overflow insert:
+    quantize the row on the device and scatter its codes and codebook
+    scales in place (coords from ``layout.overflow_write_coords``)."""
+    from repro_torch.quant.codec import quantize_row_torch
+    g = spec.quant_group
+    codes, scales = quantize_row_torch(vec, g)
+    qvec_buf[vec_block, vec_off:vec_off + spec.dim] = codes
+    qscale_buf[vec_block, vec_off // g:vec_off // g + spec.dim // g] = scales
+    return qvec_buf, qscale_buf

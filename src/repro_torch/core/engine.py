@@ -126,7 +126,7 @@ def resolve_device(device) -> torch.device:
 
 
 class DHNSWEngine:
-    """Build once, then ``search`` batches.
+    """Build once, then ``search`` and ``insert`` batches.
 
     Facade over ``ComputeClient + MemoryPool``; ``engine.client`` and
     ``engine.pool`` expose the boundary itself."""
@@ -153,6 +153,33 @@ class DHNSWEngine:
         self.client.build(data)
         return self
 
+    def build_streaming(self, source, *, chunk_rows: int,
+                        spill_dir: Optional[str] = None) -> "DHNSWEngine":
+        """Out-of-core build: stream ``source`` (an iterator of row
+        chunks) through ``repro_torch.ingest.BulkLoader`` with O(chunk)
+        peak builder memory.  Bit-identical to ``build`` on the
+        concatenated data; the loader's ``LoadReport`` lands on
+        ``self.last_load_report``."""
+        from repro_torch.core.hnsw import HNSWParams
+        from repro_torch.ingest.loader import BulkLoader
+        cfg = self.cfg
+        loader = BulkLoader(
+            n_rep=cfg.n_rep, chunk_rows=chunk_rows, seed=cfg.seed,
+            meta_levels=cfg.meta_levels,
+            sub_params=HNSWParams(M=max(cfg.sub_M0 // 2, 2), M0=cfg.sub_M0,
+                                  ef_construction=cfg.ef_construction),
+            spill_dir=spill_dir or cfg.data_dir,
+            quant_group=cfg.quant_group if cfg.quant == "int8" else 0)
+        loader.add_chunks(source)
+        meta, store, report = loader.finalize()
+        # the disk-backed spill view backs repack/rebuild lookups, so
+        # the full dataset never has to be resident on the builder
+        view = loader.data_view()
+        loader.close()
+        self.client.adopt_built(meta, store, view)
+        self.last_load_report = report
+        return self
+
     def adopt_built(self, meta, store, data: np.ndarray) -> "DHNSWEngine":
         """Serve a meta + region built elsewhere (see
         ``ComputeClient.adopt_built`` and ``repro_torch.convert``)."""
@@ -169,8 +196,9 @@ class DHNSWEngine:
             return self.client.search(queries, k=k, ef=ef, b=b)
 
     def insert(self, vecs: np.ndarray) -> np.ndarray:
-        """Dynamic insertion (paper §3.2) — not in this slice."""
-        return self.client.insert(vecs)
+        """Dynamic insertion (paper §3.2) through the pool WRITE verb."""
+        with TRACER.span("compute.insert", tier="compute"):
+            return self.client.insert(vecs)
 
     # ------------------------------------------------------------ state
 
@@ -193,3 +221,10 @@ class DHNSWEngine:
     @property
     def tiers(self):
         return self.client.tiers
+
+    @property
+    def _last_insert_net(self):
+        return self.client._last_insert_net
+
+    def _invalidate_pid(self, pid: int):
+        self.client._invalidate_pid(pid)

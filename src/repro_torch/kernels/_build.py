@@ -37,9 +37,17 @@ SIGNATURES = {
     # ids, m, bad, stream
     "gather_spans_launch": [_P, _I, _P, _L, _P, _P],
     # q, codes, scales, part_d, part_i, arrivals, out_d, out_i,
-    # B, D, group, n_valid, k, n_chunks, tile, copy width, stream
+    # B, D, group, n_groups, n_valid, k, n_chunks, tile, copy width, stream
     "quant_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, codes, scales, dist, ld, B, D, group, n_groups, n_valid,
+    # n_chunks, copy width, stream
+    "quant_distances_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
+    # q, x, dist, ld, B, D, n_valid, n_chunks, copy width, stream
+    "f32_distances_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    # dist, ld, B, n, k, scratch, out_d, out_i, stream
+    "topk_select_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
     # q, x, part_d, part_i, arrivals, out_d, out_i,
     # B, D, n_valid, k, n_chunks, tile, copy width, stream
     "distance_topk_launch": [_P, _P, _P, _P, _P, _P, _P,

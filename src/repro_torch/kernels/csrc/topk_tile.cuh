@@ -48,6 +48,16 @@
 //   counter; the last one copies the other lists into its slice buffers
 //   (cp.async, all in flight), streams them through the same filter and
 //   merges, writes the result and resets the counter to 0.
+// Two more routes share this product:
+//   Small groups: when the codec group is not a multiple of 4 (2, 6, or
+//   a row the wrapper zero-padded to a multiple of 4 dimensions), four
+//   consecutive codes may span two groups.  No scales are staged then; the
+//   dequantize reads each code's own scale (``__ldg``, L1-resident: a
+//   row's scales are D / group floats) -- kMaxSG assumes group >= 4.
+//   Large k (k > kMaxK): the lists do not fit beside the tiles.  A kDump
+//   instantiation of the same product writes every distance of the chunk
+//   to a (B, ld) matrix instead of filtering it, and topk_select.cu picks
+//   each query's k smallest from its row by radix select.
 // What is left for later (PERF.md §6): the inner loop issues FMAs at two
 // thirds of the rate a register-only FMA loop reaches on this card, and
 // ptxas spills a few words at 512 threads (128 registers); the candidates
@@ -222,6 +232,13 @@ __device__ void merge_ranked(float* ld, int* li, int k, const float* cd,
   __syncwarp();
 }
 
+// whether a slice's scales are staged: the codec group is a multiple of 4
+template <class Rows>
+__device__ __forceinline__ bool stages_scales(const Rows& rows) {
+  if constexpr (Rows::kQuant) return rows.group % 4 == 0;
+  else return true;
+}
+
 template <int K>
 __device__ __forceinline__ float part(const float4& v) {
   return K == 0 ? v.x : K == 1 ? v.y : K == 2 ? v.z : v.w;
@@ -241,12 +258,14 @@ __device__ __forceinline__ void outer(float (&acc)[TM][TN],
 
 // Rows: kQuant, and for the quantized rows codes / scales / group, for the
 // f32 rows x; see quant_topk.cu and distance_topk.cu.
-template <int BQ, int BN, int kVec, class Rows>
+// kDump: out_d is a (B, ld) distance matrix that receives every
+// distance of the rows below n_valid; there are no lists (k is 0).
+template <int BQ, int BN, int kVec, class Rows, bool kDump = false>
 __global__ void __launch_bounds__(threads_for(BQ), 1)
 topk(const float* __restrict__ q, Rows rows, float* __restrict__ part_d,
      int* __restrict__ part_i, unsigned* __restrict__ arrivals,
      float* __restrict__ out_d, int* __restrict__ out_i, int B, int D,
-     int n_valid, int k, int S) {
+     int n_valid, int k, int S, long long ld) {
   constexpr bool kQuant = Rows::kQuant;
   constexpr int kThreads = threads_for(BQ);
   constexpr int kRing = stages_for(BQ);
@@ -292,6 +311,9 @@ topk(const float* __restrict__ q, Rows rows, float* __restrict__ part_d,
   const int row_end = min(n_valid, (s + 1) * per_chunk * BN);
   const int my_tiles = (row_end - row_begin + BN - 1) / BN;
   const int n_slices = (D + kDK - 1) / kDK;
+  // the codec group is a multiple of 4: the scales of a slice are staged
+  // and four codes share one (else each code reads its own, see above)
+  const bool staged_scales = stages_scales(rows);
 
   for (int e = tid; e < BQ * k; e += kThreads) {
     top_d[e] = INFINITY;
@@ -322,8 +344,10 @@ topk(const float* __restrict__ q, Rows rows, float* __restrict__ part_d,
                           : rows.codes, ok);
       }
       const int g0 = d0 / rows.group;
-      const int ng = (min(d0 + kDK, D) - 1) / rows.group - g0 + 1;
-      const int n_groups = D / rows.group;
+      const int ng = staged_scales
+                         ? (min(d0 + kDK, D) - 1) / rows.group - g0 + 1
+                         : 0;
+      const int n_groups = rows.n_groups;
       for (int e = tid; e < BN * ng; e += kThreads) {
         const int r = e / ng, g = e % ng;
         const bool ok = n0 + r < row_end;
@@ -406,9 +430,23 @@ topk(const float* __restrict__ q, Rows rows, float* __restrict__ part_d,
         if (d0 + c < D) {
           const char4 b =
               *reinterpret_cast<const char4*>(xc + (st * BN + j) * kDK + c);
-          const float scale = sc[(st * BN + j) * kMaxSG + gl];
-          v = make_float4((float)b.x * scale, (float)b.y * scale,
-                          (float)b.z * scale, (float)b.w * scale);
+          if (staged_scales) {
+            const float scale = sc[(st * BN + j) * kMaxSG + gl];
+            v = make_float4((float)b.x * scale, (float)b.y * scale,
+                            (float)b.z * scale, (float)b.w * scale);
+          } else if (n0 + j < row_end) {
+            // each code its own scale; columns past the row's groups are
+            // the wrapper's zero padding (code 0), given the last scale
+            const float* srow =
+                rows.scales + (long long)(n0 + j) * rows.n_groups;
+            const int last = rows.n_groups - 1;
+            const int c0 = d0 + c;
+            v = make_float4(
+                (float)b.x * __ldg(srow + min(c0 / rows.group, last)),
+                (float)b.y * __ldg(srow + min((c0 + 1) / rows.group, last)),
+                (float)b.z * __ldg(srow + min((c0 + 2) / rows.group, last)),
+                (float)b.w * __ldg(srow + min((c0 + 3) / rows.group, last)));
+          }
         }
         *reinterpret_cast<float4*>(xf + j * kLd + c) = v;
         x2p[m] = fmaf(v.x, v.x, x2p[m]);
@@ -481,6 +519,19 @@ topk(const float* __restrict__ q, Rows rows, float* __restrict__ part_d,
         if (xc4 == 0) q2s[xr + kRows * m] = v;
       }
     __syncthreads();
+    if constexpr (kDump) {
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) {
+          const int i = rb + 16 * r, j = cb + kCS * c;
+          if (q0 + i < B && n0 + j < row_end)
+            out_d[(long long)(q0 + i) * ld + n0 + j] =
+                (q2s[i] - 2.f * acc[r][c]) + x2s[j];
+          acc[r][c] = 0.f;
+        }
+      continue;
+    }
     uint64_t pending = 0;
 #pragma unroll
     for (int r = 0; r < TM; ++r)
@@ -544,6 +595,7 @@ topk(const float* __restrict__ q, Rows rows, float* __restrict__ part_d,
 #pragma unroll
       for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
   }
+  if constexpr (kDump) return;
   merge_full(1);
   __syncthreads();
 
@@ -639,13 +691,14 @@ topk(const float* __restrict__ q, Rows rows, float* __restrict__ part_d,
 
 // One launch on ``st`` for the tile (64 or 128) and copy width (16, 8 or 4
 // bytes) the wrapper chose; returns cudaGetLastError().
-template <class Rows, int BQ, int kVec>
+template <class Rows, int BQ, int kVec, bool kDump = false>
 int launch_tile(const float* q, Rows rows, float* part_d, int* part_i,
                 unsigned* arrivals, float* out_d, int* out_i, int B, int D,
-                int n_valid, int k, int S, cudaStream_t st) {
+                int n_valid, int k, int S, cudaStream_t st,
+                long long ld = 0) {
   const size_t smem = smem_bytes<Rows::kQuant>(BQ, BQ, k);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  auto* fn = &topk<BQ, BQ, kVec, Rows>;
+  auto* fn = &topk<BQ, BQ, kVec, Rows, kDump>;
   // the opt-in to the full 227 KB, once per device: setting it before every
   // launch waits for the kernels in flight
   static unsigned long long opted = 0;
@@ -661,7 +714,8 @@ int launch_tile(const float* q, Rows rows, float* part_d, int* part_i,
   }
   dim3 grid((B + BQ - 1) / BQ, S);
   fn<<<grid, threads_for(BQ), smem, st>>>(q, rows, part_d, part_i, arrivals,
-                                          out_d, out_i, B, D, n_valid, k, S);
+                                          out_d, out_i, B, D, n_valid, k, S,
+                                          ld);
   return (int)cudaGetLastError();
 }
 
@@ -683,6 +737,27 @@ int launch(const float* q, Rows rows, float* part_d, int* part_i,
   TOPK_TILE_LAUNCH(64, 8)
   TOPK_TILE_LAUNCH(64, 4)
 #undef TOPK_TILE_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The large-k route's product: every distance of the rows below n_valid
+// into dist (B, ld), at the 128 x 128 tile, S chunks of rows.
+template <class Rows>
+int launch_distances(const float* q, Rows rows, float* dist, long long ld,
+                     int B, int D, int n_valid, int S, int vec,
+                     cudaStream_t st) {
+  if (B <= 0 || n_valid <= 0) return 0;
+  if (D <= 0 || S <= 0 || S > 65535 || ld < n_valid)
+    return (int)cudaErrorInvalidValue;
+#define TOPK_DIST_LAUNCH(V)                                                 \
+  if (vec == V)                                                             \
+    return launch_tile<Rows, 128, V, true>(q, rows, nullptr, nullptr,       \
+                                           nullptr, dist, nullptr, B, D,    \
+                                           n_valid, 0, S, st, ld);
+  TOPK_DIST_LAUNCH(16)
+  TOPK_DIST_LAUNCH(8)
+  TOPK_DIST_LAUNCH(4)
+#undef TOPK_DIST_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,16 +24,10 @@
 // merge across chunks in the last CTA).  The
 // Pallas grid carries its top-k in VMEM across a sequential N axis; CTAs on
 // 132 SMs run in no order, hence the merge in the last CTA to arrive.
+// For k > 128 the lists do not fit beside the tiles: f32_distances.cu and
+// ../../quant_topk/csrc/topk_select.cu serve those.
 #include "../../csrc/topk_tile.cuh"
-
-namespace {
-
-struct F32Rows {
-  static constexpr bool kQuant = false;
-  const float* x;   // (N, D)
-};
-
-}  // namespace
+#include "f32_rows.cuh"
 
 // q (B, D) and x (N, D) f32, contiguous, both aligned to ``vec`` (16, 8 or
 // 4 bytes, dividing 4 * D); part_d / part_i (B, S, k) scratch; arrivals

@@ -9,6 +9,11 @@ cast to f32 first, ``n_valid`` defaults to N, and the result is ascending
 ``(B, k)`` distances and int32 ids with inf/-1 where fewer than ``k`` rows
 are valid.  ``use_ref=True`` returns the plain version's raw result, as
 the reference does.  ``launches`` counts kernel launches.
+
+Every k runs on the card, by the route ``quant_topk`` picks for it: one
+launch of the tiled top-k for ``k <= K_MAX``, else the large-k route (the
+product writing every distance, ``csrc/f32_distances.cu``, then the
+per-query select, ``quant_topk/csrc/topk_select.cu``).
 """
 from __future__ import annotations
 
@@ -17,8 +22,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref
 from repro_torch.kernels.quant_topk.ops import (K_MAX, arrivals, buffers,
-                                                copy_width, launch_shape,
-                                                to_contract)
+                                                copy_width, large_k,
+                                                launch_shape, to_contract)
 from repro_torch.obs.trace import TRACER
 
 launches = 0
@@ -59,15 +64,25 @@ def _launch(q, x, k: int, n_valid: int, bufs, tile: int, S: int) -> None:
 
 def _cuda(q, x, k: int, n_valid: int):
     global launches
-    if k > K_MAX:
-        raise ValueError(f"distance_topk kernel keeps at most {K_MAX} per "
-                         f"query, asked for {k}")
     B = q.shape[0]
+    if not B:
+        return (torch.empty((0, k), dtype=torch.float32, device=q.device),
+                torch.empty((0, k), dtype=torch.int32, device=q.device))
+    if k > K_MAX:
+        def distances(qb, dist, S):
+            err = _build.library().f32_distances_launch(
+                qb.data_ptr(), x.data_ptr(), dist.data_ptr(), dist.shape[1],
+                qb.shape[0], qb.shape[1], n_valid, S,
+                copy_width(4 * qb.shape[1], qb, x),
+                _build.stream_handle(qb.device))
+            _build.check(err, "f32_distances")
+        d, i, n = large_k(q, k, n_valid, False, distances)
+        launches += n
+        return d, i
     tile, S = launch_shape(B, n_valid, k, quant=False)
     bufs = buffers(B, k, S, q.device)
-    if B:
-        _launch(q, x, k, n_valid, bufs, tile, S)
-        launches += 1
+    _launch(q, x, k, n_valid, bufs, tile, S)
+    launches += 1
     return bufs[2], bufs[3]
 
 

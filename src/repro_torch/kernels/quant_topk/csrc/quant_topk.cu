@@ -15,39 +15,32 @@
 //
 // Design: the one launch of ../../csrc/topk_tile.cuh (a register-tiled f32
 // product over a cp.async ring, a threshold-filtered top-k, the merge
-// across chunks in the last CTA).  What this file adds is the
-// rows: each 32-wide slice of the codes is staged as bytes with the scales
-// of the groups it touches (one copy per (row, group)), then dequantized
-// once per element into an f32 slice in shared memory (code x scale in
-// f32), so the codes never exist in f32 in device memory.
+// across chunks in the last CTA) for k <= kMaxK (128).  What this file
+// adds is the rows: each 64-wide slice of the codes is staged as bytes
+// with the scales of the groups it touches (one copy per (row, group)),
+// then dequantized once per element into an f32 slice in shared memory
+// (code x scale in f32), so the codes never exist in f32 in device memory.
+// Groups that are not a multiple of 4 read each code's scale instead.
+// Larger k take quant_distances.cu and topk_select.cu.
 #include "../../csrc/topk_tile.cuh"
+#include "quant_rows.cuh"
 
-namespace {
-
-struct DequantRows {
-  static constexpr bool kQuant = true;
-  const int8_t* codes;   // (N, D)
-  const float* scales;   // (N, D / group)
-  int group;             // a multiple of 4 dividing D
-};
-
-}  // namespace
-
-// q (B, D) f32, 16-byte aligned; codes (N, D) int8 and scales contiguous,
-// codes aligned to ``vec`` (16, 8 or 4 bytes, dividing D); part_d / part_i
+// q (B, D) f32, 16-byte aligned; codes (N, D) int8 and scales (N,
+// n_groups) contiguous, codes aligned to ``vec`` (16, 8 or 4 bytes,
+// dividing D); D is the codes' row length, a multiple of 4: a row the
+// wrapper zero-padded holds n_groups * group < D codes; part_d / part_i
 // (B, S, k) scratch; arrivals (ceil(B / tile),) uint32, all 0 before the
 // launch and left 0 after it; out_d / out_i (B, k); tile 128 or 64.
 extern "C" int quant_topk_launch(const void* q, const void* codes,
                                  const void* scales, void* part_d,
                                  void* part_i, void* arrivals, void* out_d,
                                  void* out_i, int B, int D, int group,
-                                 int n_valid, int k, int S, int tile, int vec,
-                                 void* stream) {
+                                 int n_groups, int n_valid, int k, int S,
+                                 int tile, int vec, void* stream) {
   if (B <= 0) return 0;
-  if (D <= 0 || group <= 0 || group % 4 || D % group || D % vec)
+  DequantRows rows;
+  if (!dequant_rows(codes, scales, D, group, n_groups, vec, &rows))
     return (int)cudaErrorInvalidValue;
-  const DequantRows rows{static_cast<const int8_t*>(codes),
-                         static_cast<const float*>(scales), group};
   return topk_tile::launch(
       static_cast<const float*>(q), rows, static_cast<float*>(part_d),
       static_cast<int*>(part_i), static_cast<unsigned*>(arrivals),

@@ -7,6 +7,21 @@ reference wrapper's contract (``repro/kernels/quant_topk/ops.py``):
 ascending ``(B, k)`` distances and int32 ids, with inf/-1 where fewer
 than ``k`` rows are valid.  ``use_ref=True`` returns the plain version's
 raw result, as the reference does.  ``launches`` counts kernel launches.
+
+Every k, group and D the reference serves runs on the card; the wrapper
+picks the route by k, never after a failure:
+
+* ``k <= K_MAX`` (128): one launch of the tiled top-k
+  (``csrc/quant_topk.cu`` over ``kernels/csrc/topk_tile.cuh``);
+* larger k: the large-k route, two launches per block of queries — the
+  same product writing every distance (``csrc/quant_distances.cu``),
+  then a per-query radix select (``csrc/topk_select.cu``); the blocks
+  keep the distance matrix under ``SELECT_BYTES``.
+
+A group that is not a multiple of 4 takes the kernel's per-code scale
+path, and codes whose rows are not a multiple of 4 bytes are zero-padded
+to one (a layout step: zero codes against zero query entries add nothing
+to a distance).
 """
 from __future__ import annotations
 
@@ -17,7 +32,12 @@ from repro_torch.kernels.quant_topk.ref import quant_topk_ref
 from repro_torch.obs.trace import TRACER
 
 launches = 0
-K_MAX = 128          # longest top-k list the kernel keeps per query
+K_MAX = 128          # longest top-k list the tiled kernel keeps per query
+# the large-k route: distance-matrix bytes per block of queries, and the
+# lists topk_select.cu sorts in shared memory (kSortSmem; longer ones in a
+# scratch of B x P words)
+SELECT_BYTES = 1 << 30
+SORT_SMEM = 16384
 # csrc/topk_tile.cuh: slices of 64 dimensions (rows padded by 4 floats),
 # 32 candidate slots a query, and at each square tile the threads, the
 # copy-ring stages and the registers a thread (``-Xptxas -v``, the larger
@@ -163,38 +183,115 @@ def _plain(queries, codes, scales, k: int, group: int, n_valid: int):
 
 def _launch(queries, codes, scales, k: int, group: int, n_valid: int,
             bufs, tile: int, S: int) -> None:
-    """One launch into preallocated ``buffers`` (no checks, not
-    counted)."""
+    """One launch of the tiled top-k (k <= K_MAX) into preallocated
+    ``buffers`` (no checks, not counted).  ``kernel_layout`` gives the
+    inputs."""
     B, D = queries.shape
     part_d, part_i, out_d, out_i = bufs
     err = _build.library().quant_topk_launch(
         queries.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(),
         arrivals(queries.device, -(-B // tile)).data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), B, D, group, n_valid, k, S, tile,
+        out_i.data_ptr(), B, D, group, scales.shape[1], n_valid, k, S, tile,
         copy_width(D, codes), _build.stream_handle(queries.device))
     _build.check(err, "quant_topk")
 
 
-def _cuda(queries, codes, scales, k: int, group: int, n_valid: int):
-    global launches
-    if k > K_MAX:
-        raise ValueError(f"quant_topk kernel keeps at most {K_MAX} per "
-                         f"query, asked for {k}")
-    if group % 4:
-        raise ValueError(f"quant_topk kernel dequantizes 4 codes at a time: "
-                         f"group must be a multiple of 4, got {group}")
+def kernel_layout(queries, codes, scales):
+    """The kernels' inputs: f32 queries starting on 16 bytes, contiguous
+    codes and f32 scales.  Rows of D % 4 != 0 codes are zero-padded to a
+    multiple of 4 (the queries too): a layout step for the 4-byte copies,
+    not a fallback — a zero code against a zero query entry adds nothing
+    to a distance, and the kernel gives the padding the row's last
+    scale."""
     q = queries.to(torch.float32).contiguous()
-    if q.data_ptr() % 16:
-        q = q.clone()
     c = codes.contiguous()
     s = scales.to(torch.float32).contiguous()
+    pad = -q.shape[1] % 4
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+        c = torch.nn.functional.pad(c, (0, pad))
+    if q.data_ptr() % 16:
+        q = q.clone()
+    if c.data_ptr() % 4:
+        c = c.clone()
+    return q, c, s
+
+
+def select_blocks(B: int, n_valid: int) -> int:
+    """Queries per block of the large-k route: its (block, n_valid) f32
+    distance matrix stays under ``SELECT_BYTES``."""
+    return max(1, min(B, SELECT_BYTES // (4 * max(n_valid, 1))))
+
+
+def select_scratch(Bq: int, k: int, n_valid: int, device):
+    """topk_select.cu's sort scratch for a block of ``Bq`` queries: None
+    when its lists sort in shared memory."""
+    P = 1 << max(min(k, n_valid) - 1, 0).bit_length()
+    if P <= SORT_SMEM:
+        return None
+    return torch.empty((Bq, P), dtype=torch.int64, device=device)
+
+
+def select_launch(dist, n_valid: int, k: int, scratch, out_d, out_i) -> None:
+    """One launch of topk_select.cu: the k smallest of each row of
+    ``dist`` (B, ld) below column n_valid, into out_d / out_i (no checks,
+    not counted)."""
+    err = _build.library().topk_select_launch(
+        dist.data_ptr(), dist.shape[1], dist.shape[0], n_valid, k,
+        0 if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), _build.stream_handle(dist.device))
+    _build.check(err, "topk_select")
+
+
+def large_k(q, k: int, n_valid: int, quant: bool, distances) -> tuple:
+    """The large-k route over the queries ``q`` (B, D), block by block of
+    ``select_blocks`` queries: ``distances(q_block, dist, S)`` launches
+    the product into ``dist`` (block, n_valid) over S chunks of rows,
+    then ``select_launch``.  Returns ((B, k) distances, (B, k) int32 ids,
+    kernel launches)."""
     B = q.shape[0]
+    out_d = torch.empty((B, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=q.device)
+    Bq = select_blocks(B, n_valid)
+    dist = torch.empty((Bq, max(n_valid, 1)), dtype=torch.float32,
+                       device=q.device)
+    scratch = select_scratch(Bq, k, n_valid, q.device)
+    n = 0
+    for b0 in range(0, B, Bq):
+        b1 = min(B, b0 + Bq)
+        if n_valid:
+            distances(q[b0:b1], dist, chunks(b1 - b0, n_valid, TILES[0], 0,
+                                             quant))
+            n += 1
+        select_launch(dist[:b1 - b0], n_valid, k, scratch, out_d[b0:b1],
+                      out_i[b0:b1])
+        n += 1
+    return out_d, out_i, n
+
+
+def _cuda(queries, codes, scales, k: int, group: int, n_valid: int):
+    global launches
+    q, c, s = kernel_layout(queries, codes, scales)
+    B = q.shape[0]
+    if not B:
+        return (torch.empty((0, k), dtype=torch.float32, device=q.device),
+                torch.empty((0, k), dtype=torch.int32, device=q.device))
+    if k > K_MAX:
+        def distances(qb, dist, S):
+            err = _build.library().quant_distances_launch(
+                qb.data_ptr(), c.data_ptr(), s.data_ptr(), dist.data_ptr(),
+                dist.shape[1], qb.shape[0], qb.shape[1], group, s.shape[1],
+                n_valid, S, copy_width(qb.shape[1], c),
+                _build.stream_handle(qb.device))
+            _build.check(err, "quant_distances")
+        d, i, n = large_k(q, k, n_valid, True, distances)
+        launches += n
+        return d, i
     tile, S = launch_shape(B, n_valid, k, quant=True)
     bufs = buffers(B, k, S, q.device)
-    if B:
-        _launch(q, c, s, k, group, n_valid, bufs, tile, S)
-        launches += 1
+    _launch(q, c, s, k, group, n_valid, bufs, tile, S)
+    launches += 1
     return bufs[2], bufs[3]
 
 

@@ -11,6 +11,8 @@ text exposition format:
   (the STATS verb): per-verb request counts, service seconds, payload
   byte totals, and (for durable servers) the WAL/checkpoint/replay
   counters under ``ingest``.
+* :func:`render_ingest` — from a bulk-load ``LoadReport`` (and
+  optionally a ``Compactor.stats()`` snapshot).
 
 Pure functions over plain dicts — no scrape endpoint is included; embed
 the text wherever your deployment exposes it.
@@ -312,5 +314,26 @@ def render_pool_server(stats: Dict[str, Any]) -> str:
               "durability counters (WAL/checkpoint/replay)", "counter")
         for key, v in sorted(ing.items()):
             out.append(_line("repro_poolserver_ingest_total", float(v),
+                             {"what": key}))
+    return "\n".join(out) + "\n"
+
+
+def render_ingest(report: Dict[str, Any],
+                  compactor: Optional[Dict[str, Any]] = None) -> str:
+    """Render a bulk-load :class:`~repro.ingest.loader.LoadReport` dict
+    (``dataclasses.asdict``) and optionally a ``Compactor.stats()``
+    snapshot as Prometheus text."""
+    out: List[str] = []
+    _head(out, "repro_ingest_load", "bulk-load counters", "gauge")
+    for key in ("rows", "chunks_total", "chunks_ok", "chunks_failed",
+                "chunks_retried", "chunk_bytes", "dataset_bytes",
+                "peak_builder_bytes", "verbs_issued", "groups_shipped"):
+        out.append(_line("repro_ingest_load", report.get(key, 0),
+                         {"what": key}))
+    if compactor:
+        _head(out, "repro_ingest_compactor_total",
+              "background compaction counters", "counter")
+        for key, v in sorted(compactor.items()):
+            out.append(_line("repro_ingest_compactor_total", float(v),
                              {"what": key}))
     return "\n".join(out) + "\n"

@@ -1,8 +1,9 @@
 """Disaggregated-memory boundary: MemoryPool transports + ComputeClient.
 
-This slice ports the in-process transport (``LocalPool``); the simulated
-RDMA, sharded and remote transports raise until they are ported (ROADMAP
-"Modules to port" items 6 and 7).
+The port has the in-process transport (``LocalPool``, with the write
+verbs and the 1/N compacted staging); the simulated RDMA, sharded and
+remote transports raise until they are ported (ROADMAP "Modules to port"
+items 6 and 7).
 """
 from repro_torch.pool.compute import ComputeClient
 from repro_torch.pool.local import LocalPool

@@ -5,9 +5,10 @@ instance hold: the cached representative meta-HNSW, the resident-partition
 cache tiers, the round scheduler, and the device serve path.  Every byte
 of index data it touches arrives through a ``MemoryPool`` verb.
 
-In this port so far: ``build`` / ``adopt_built``, exact search
-(``quant="none"``, both search modes, all three schemes) and the int8
-staged search in every configuration.  Its stage 1 is routed as the
+It covers ``build`` / ``adopt_built``, exact search (``quant="none"``,
+both search modes, all three schemes), the int8 staged search in every
+configuration, and ``insert`` through the pool ``append`` verb (with the
+group repack and the full rebuild it falls back to).  Its stage 1 is routed as the
 reference routes it: the dense-resident flat scan (``quant_kernel``
 "auto" or "ref", ``search_mode="scan"``, a quantized tier that holds
 every partition) runs ``kernels/quant_topk`` — the CUDA kernel on the
@@ -15,8 +16,9 @@ card ("auto") or its plain torch version ("ref", and every tensor on the
 CPU); every other int8 configuration runs the per-pair stage 1 over the
 quantized tier's device slots (``_stage1_pairs``).
 
-Not in this port yet: ``insert`` (ROADMAP "Modules to port" item 5),
-which raises ``NotImplementedError``.
+The flat view keeps a device twin of its payload columns (``_flat_cols``:
+gid, region row, pid), which the reference reads from host arrays; an
+insert that extends the view writes its row there too.
 
 Device tensors use the reference's dtypes: with JAX's default x32, gids,
 pids and payloads are int32 until the results are cast to int64 at the
@@ -53,8 +55,11 @@ class ComputeClient:
         self.pool: Optional[MemoryPool] = None
         self.meta: Optional[ME.MetaIndex] = None
         self.tiers: Optional[SCH.TieredCacheState] = None
+        self._extra: dict[int, np.ndarray] = {}   # inserted gid -> vector
+        self._extra_pid: dict[int, int] = {}
         self._n0 = 0                              # base dataset size
         self._data: Optional[np.ndarray] = None
+        self._last_insert_net: Optional[dict] = None
         # dense-resident flat stage-1 state (quant_kernel route)
         self._flat_synced = False
         self._flat_idx = None
@@ -158,6 +163,12 @@ class ComputeClient:
         return (self._span_cache(cap, torch.int32, spec.gblk, -1),
                 self._span_cache(cap, torch.int8, spec.vblk, 0),
                 self._span_cache(cap, torch.float32, spec.n_qgroups, 0))
+
+    def _lookup(self, gids: np.ndarray) -> np.ndarray:
+        out = np.zeros((len(gids), self.pool.spec.dim), np.float32)
+        for i, g in enumerate(int(x) for x in gids):
+            out[i] = self._data[g] if g < self._n0 else self._extra[g]
+        return out
 
     # ------------------------------------------------------------ search
 
@@ -552,7 +563,116 @@ class ComputeClient:
     # ------------------------------------------------------------ insert
 
     def insert(self, vecs: np.ndarray) -> np.ndarray:
-        """Dynamic insertion (paper §3.2) — not in this slice."""
-        raise NotImplementedError(
-            "insert is ported with the pool write verbs (ROADMAP 'Modules "
-            "to port' item 5)")
+        """Dynamic insertion (paper §3.2): route via the cached meta-HNSW,
+        append vector+id into the target group's shared overflow region
+        through the pool ``append`` verb (one remote WRITE each), repack
+        the group when it fills."""
+        cfg = self.cfg
+        pool = self.pool
+        spec = pool.spec
+        vecs = np.asarray(vecs, np.float32).reshape(-1, spec.dim)
+        t0 = time.perf_counter()
+        pids = self._route(self._t(vecs), b=1)[:, 0]
+        TRACER.add("compute.route", "compute", t0,
+                   time.perf_counter() - t0, B=int(len(vecs)))
+        gids = np.arange(self._n0 + len(self._extra),
+                         self._n0 + len(self._extra) + len(vecs))
+        ledger = NetLedger(cfg.fabric)
+        for vec, gid, pid in zip(vecs, gids, pids.tolist()):
+            self._extra[int(gid)] = vec
+            self._extra_pid[int(gid)] = int(pid)
+            slot = pool.append(vec, int(gid), int(pid), ledger=ledger)
+            if slot < 0:
+                group = int(pool.store.meta_table[pid, LA.MT_GROUP])
+                ok = pool.repack(group, self._lookup)
+                if not ok:
+                    # the full rebuild folds _extra — INCLUDING this
+                    # vector — into the rebuilt base partitions, so
+                    # appending it again would duplicate its gid
+                    self._full_rebuild()
+                    continue
+                self._invalidate_group(group)
+                # re-stage through the pool append verb, which performs
+                # the device and quantized-mirror twin writes
+                slot = pool.append(vec, int(gid), int(pid), ledger=ledger)
+                assert slot >= 0, "overflow full right after repack"
+                self._flat_synced = False   # repack moved base rows
+                continue
+            self._invalidate_pid(int(pid))
+            if self._flat_synced:
+                self._append_flat(int(gid), int(pid))
+        self._last_insert_net = ledger.as_dict()
+        return gids
+
+    def _append_flat(self, gid: int, pid: int):
+        """Keep the dense-resident flat view coherent with one append:
+        the writer already holds the row (it produced the WRITE), so
+        this is pure compute-side bookkeeping — no wire traffic.  Row n
+        of the codes, the scales and the payload twin ``_flat_cols`` is
+        written in place."""
+        n = self._flat_n
+        if n >= len(self._flat_idx):
+            self._flat_synced = False        # outgrew the pad: resync
+            return
+        mrow = self.pool.store.meta_table[pid]
+        side = int(mrow[LA.MT_SIDE])
+        cnt = int(mrow[LA.MT_OV_A if side == 0 else LA.MT_OV_B])
+        slot = cnt - 1 if side == 0 else self.pool.spec.ov_cap - cnt
+        group = int(mrow[LA.MT_GROUP])
+        co = LA.overflow_write_coords(self.pool.spec, group, slot)
+        row = (co["vec_block"] * self.pool.spec.slot_vecs
+               + co["vec_off"] // self.pool.spec.dim)
+        self._flat_idx[n] = row
+        self._flat_gid[n] = gid
+        self._flat_pid[n] = pid
+        self._flat_n = n + 1
+        # only row n changed: a one-row gather and in-place writes, so a
+        # flat-route insert stays O(D), not O(N*D)
+        codes, scales = self.pool.read_quant_rows(
+            self._t([row], torch.int32))
+        self._flat_codes[n] = codes[0]
+        self._flat_scales[n] = scales[0]
+        self._flat_cols[n] = self._t([gid, row, pid], torch.int32)
+
+    def _invalidate_pid(self, pid: int):
+        """Drop stale cached copies (both partners see the ov region)."""
+        group = int(self.pool.store.meta_table[pid, LA.MT_GROUP])
+        self._invalidate_group(group)
+
+    def _invalidate_group(self, group: int):
+        for side in (0, 1):
+            p = group * 2 + side
+            if self.tiers is not None:
+                self.tiers.invalidate(p)    # drops BOTH tiers
+            self.cache.drop(p)
+
+    def _full_rebuild(self):
+        """np_max exhausted: rebuild the whole region with a larger pad
+        (rare; the paper's offline re-pack path)."""
+        data = np.concatenate([self._data, np.stack(
+            [self._extra[g] for g in sorted(self._extra)])]) \
+            if self._extra else self._data
+        assigns = np.concatenate([
+            self.meta.assignments,
+            np.array([self._extra_pid[g] for g in sorted(self._extra)],
+                     np.int32)])
+        import dataclasses as DC
+        self.meta = DC.replace(self.meta, assignments=assigns)
+        self._data = data
+        self._n0 = data.shape[0]
+        self._extra.clear()
+        self._extra_pid.clear()
+        old_spec = self.pool.spec
+        store = LA.build_store(
+            data, self.meta, ov_cap=old_spec.ov_cap,
+            slot_vecs=old_spec.slot_vecs,
+            sub_params=HNSWParams(M=max(self.cfg.sub_M0 // 2, 2),
+                                  M0=self.cfg.sub_M0,
+                                  ef_construction=self.cfg.ef_construction))
+        self.pool.adopt(store)
+        if self.tiers is not None:
+            self._setup_quant(self._cap0)
+        else:
+            cap = self.cache.capacity
+            self._setup_caches(cap)
+        self._flat_synced = False

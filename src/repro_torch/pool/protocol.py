@@ -17,9 +17,10 @@ dedup the charge).  ``ledger=None`` moves data without charging.  Pools
 keep running totals (``totals``) and per-verb invocation counts
 (``verbs``) beside the ledgers.
 
-This slice ports the in-process transport only (``LocalPool``); the
-per-verb latency histograms and mutation hooks of the reference belong
-to the multi-node pools and the insert path, which come later.
+This port has the in-process transport (``LocalPool``) with the write
+verbs (``append``, ``repack``, ``adopt``) and the mutation hooks the
+ingest compactor subscribes to; the per-verb latency histograms of the
+reference belong to the multi-node pools, which come later.
 """
 from __future__ import annotations
 
@@ -77,6 +78,10 @@ class MemoryPool(abc.ABC):
                                            device=self.device)
             self._mt_dirty = False
         return self._mt_dev
+
+    @abc.abstractmethod
+    def adopt(self, store: Store) -> None:
+        """Re-register a rebuilt region (the offline full re-pack)."""
 
     @abc.abstractmethod
     def attach_quant(self, group: int) -> None:
@@ -164,6 +169,45 @@ class MemoryPool(abc.ABC):
         for chunk in doorbell_chunks(groups, doorbell):
             cnt = sum(c for _, c in chunk)
             self._charge("post_row_reads", ledger, cnt * row_b, cnt)
+
+    # ------------------------------------------------------------ mutation
+
+    def register_mutation_hook(self, fn) -> None:
+        """Subscribe ``fn(verb, **info)`` to state-mutating verbs.
+
+        Transports call :meth:`_notify_mutation` after an ``append`` or
+        ``repack`` lands; the ingest compactor uses this to track dirty
+        groups without polling, and tests use it to observe write flow.
+        Hooks run synchronously on the mutating thread and must be
+        cheap; a hook must never call back into the pool.
+        """
+        if not hasattr(self, "_mutation_hooks"):
+            self._mutation_hooks = []
+        self._mutation_hooks.append(fn)
+
+    def _notify_mutation(self, verb: str, **info) -> None:
+        """Fan a landed mutation out to the registered hooks."""
+        for fn in getattr(self, "_mutation_hooks", ()):
+            fn(verb, **info)
+
+    # ------------------------------------------------------------ writes
+
+    @abc.abstractmethod
+    def append(self, vec, gid: int, pid: int, *,
+               ledger: Optional[NetLedger]) -> int:
+        """One-sided WRITE: stage one vector into ``pid``'s shared
+        overflow region — host layout, device twin, and (when attached)
+        the quantized-mirror twin, atomically.  Returns the slot index
+        or -1 when the group's region is full (caller must repack).
+        Charges the wire bytes of the write (vector + id, plus codes +
+        codebook scales when the mirror is attached)."""
+
+    @abc.abstractmethod
+    def repack(self, group: int, data_lookup) -> bool:
+        """Offline re-pack of one group (paper §3.2): fold both
+        partners' overflow into rebuilt sub-HNSWs, refresh the quantized
+        mirror, re-register the touched region.  Returns False when a
+        merged partition no longer fits (caller must full-rebuild)."""
 
     # ------------------------------------------------------------ stats
 

@@ -64,3 +64,25 @@ def quantize_blocks(vec_buf: np.ndarray, group: int) -> QuantizedBlocks:
     """Quantize a whole (n_blocks, vblk) block buffer in one shot."""
     codes, scales = quantize_groups(vec_buf, group)
     return QuantizedBlocks(codes=codes, scales=scales, group=group)
+
+
+# ------------------------------------------------------------- device twin
+
+def quantize_row_torch(vec, group: int):
+    """torch twin of ``quantize_groups`` for one (D,) f32 row, on the row's
+    device — the insert path's device scatter of a quantized overflow
+    write.  Returns (codes (D,) int8, scales (D//group,) f32), equal bit
+    for bit to ``quantize_groups``: the same f32 divides, ``torch.round``
+    rounds half to even as ``np.rint`` does, and the clip to +-127.  The
+    divisor 127 is a tensor: on the card torch turns a division by a
+    host scalar into a product with its reciprocal, which rounds
+    differently.
+    """
+    import torch
+    d = vec.shape[-1]
+    gx = vec.to(torch.float32).reshape(d // group, group)
+    amax = gx.abs().amax(dim=-1)
+    scales = amax / torch.full_like(amax, QMAX)
+    codes = torch.round(gx / torch.clamp(scales, min=EPS)[:, None])
+    codes = torch.clamp(codes, -QMAX, QMAX).to(torch.int8)
+    return codes.reshape(d), scales

@@ -225,13 +225,8 @@ def test_cuda_without_a_card_raises():
 
 
 def test_paths_outside_the_slice_raise(built_engine, sift_small):
-    meta, store = _port_state(built_engine)
-    eng = DHNSWEngine(EngineConfig(**BASE), device="cpu")
-    eng.adopt_built(meta, store, sift_small.data)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.insert(sift_small.queries[:1])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.pool.append(sift_small.queries[0], 0, 0, ledger=None)
+    """The multi-node transports are not ported yet (insert and the pool
+    write verbs are: ``tests/test_torch_insert.py``)."""
     for pool in ("sim_rdma", "sharded", "remote"):
         with pytest.raises(NotImplementedError):
             DHNSWEngine(EngineConfig(pool=pool, **BASE), device="cpu")
@@ -309,6 +304,36 @@ def test_chip_smoke_phases_on_cpu(chip_smoke):
     assert all((ROOT / r["source"]).exists() for r in recs)
     # the profiled decode window's busy time is a union of intervals
     assert cs._busy_us([(5, 6), (0, 2), (1, 3), (5.5, 5.75)]) == 4.0
+
+
+def test_chip_smoke_insert_and_load_phases_on_cpu(chip_smoke):
+    """Phases 10 (insert) and 11 (bulk load) at a tiny size on the CPU:
+    every check of theirs runs (gids, verbs, the charge rule, the region
+    and flat view against the host and a fresh sync, routing against the
+    CPU twin, self-recall, recall, bit-identical streamed build), and the
+    gather calls they record become phase 4 launches on named buffers."""
+    cs = chip_smoke
+    cpu = torch.device("cpu")
+    ds, meta, store, qstore = cs.phase_index(1000, 32, 8)
+    vec0 = store.vec_buf.copy()
+    _, scan = cs.phase_exact(ds, meta, store, cpu, k=10, doorbell=16,
+                             gathers=cs.main_path_gathers(
+                                 meta, store, ds.queries, cpu, doorbell=16))
+    ins, rec, bufs = cs.phase_insert(ds, meta, store, qstore, cpu, k=10,
+                                     doorbell=16,
+                                     scan_recall=scan["recall_at_k"],
+                                     n_held=16)
+    assert np.array_equal(store.vec_buf, vec0)     # worked on copies
+    assert all(n == 0 for n in ins.values())      # plain versions here
+    assert rec and set(bufs) == {n for b, _ in rec for n in b}
+    load, rec2, bufs2 = cs.phase_load(cpu, n=1600, n_rep=12, n_chunks=8,
+                                      n_queries=16, k=10, doorbell=16)
+    assert all(n == 0 for n in load.values()) and rec2
+    assert len({b for b, _ in rec2}) == 2           # one per engine
+    planned = cs.gather_launches(([], 0), {}, (), rec + rec2)
+    assert planned == rec + rec2
+    gather = cs._gather_record({**bufs, **bufs2}, planned, cpu, timed=False)
+    assert gather["bound_ms"] > 0 and gather["max_abs_err"] == 0.0
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

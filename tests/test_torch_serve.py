@@ -124,11 +124,32 @@ def test_rag_serve_needs_a_card_unless_asked_for_the_cpu(rag):
 
 
 def test_insert_through_the_batcher_raises(rag):
-    """The port's engine has no insert yet (ROADMAP queue 1, item 5), so
-    an insert request through the serving tier raises too."""
+    """An insert request through the serving tier (``SearchServer`` ->
+    ``MicroBatcher`` -> the engine's insert) returns the gids the JAX
+    package's serving tier returns for the same request, and a search
+    fused after it finds the inserted vectors, as the reference's does.
+    (The name dates from the slices before insert was ported.)"""
+    pytest.importorskip("jax")
+    import repro.core as RC
+    from repro.serve.server import SearchServer as RServer
     eng, docs = rag
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.server.insert(docs.embeddings[:1])
+    new = docs.embeddings[:3] + 0.001
+    servers = (SearchServer(DHNSWEngine(EngineConfig(**RET), device="cpu")
+                            .build(docs.embeddings)),
+               RServer(RC.DHNSWEngine(RC.EngineConfig(**RET))
+                       .build(docs.embeddings)))
+    try:
+        gids = [s.insert(new) for s in servers]
+        np.testing.assert_array_equal(gids[0], gids[1])
+        np.testing.assert_array_equal(
+            gids[0], np.arange(len(docs.embeddings),
+                               len(docs.embeddings) + 3))
+        hits = [s.search(new, k=3)[1] for s in servers]
+        np.testing.assert_array_equal(hits[0], hits[1])
+        assert all(int(g) in hits[0][i] for i, g in enumerate(gids[0]))
+    finally:
+        for s in servers:
+            s.stop()
 
 
 # ------------------------------------------------- the framework-free copies
@@ -136,7 +157,8 @@ def test_insert_through_the_batcher_raises(rag):
 COPIES = ([f"configs/{p.name}" for p in
            sorted((ROOT / "src/repro/configs").glob("*.py"))]
           + ["obs/hist.py", "obs/slo.py", "obs/metrics.py",
-             "serve/batcher.py", "serve/server.py"])
+             "serve/batcher.py", "serve/server.py", "ingest/loader.py",
+             "ingest/compactor.py"])
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -145,14 +167,6 @@ def test_copies_are_the_originals_with_imports_rewritten(rel):
     port = (ROOT / "src/repro_torch" / rel).read_text()
     want = orig.replace("from repro.", "from repro_torch.").replace(
         'import_module(f"repro.', 'import_module(f"repro_torch.')
-    if rel == "obs/metrics.py":
-        # the bulk loader's exporter (the file's last function, and its
-        # line in the docstring) comes with the ingest slice (ROADMAP
-        # queue 1, item 5)
-        want = want[:want.index("\n\n\ndef render_ingest(")] + "\n"
-        want = want.replace(
-            "* :func:`render_ingest` — from a bulk-load ``LoadReport`` (and"
-            "\n  optionally a ``Compactor.stats()`` snapshot).\n", "")
     assert port == want
 
 
