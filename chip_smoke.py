@@ -13,7 +13,8 @@ Phases, each printing its own lines:
    256 partitions (the paper's geometry, cut as ``reduced`` says);
 4. kernels against their plain torch versions on the card at the shapes
    the paths give them (for the gather, the ids of every launch of
-   phases 5, 8 and 9, planned as the engine plans them; for
+   phases 5, 8 and 9, planned as the engine plans them, and of phases
+   10-13, recorded there; for
    ``distance_topk``, the throughput benchmark's B=128 x N=4096 and the
    flat f32 twin of ``quant_topk``'s shape; for ``decode_attention``,
    phase 9's first decode call and a long-context shape), with times
@@ -59,11 +60,30 @@ Phases, each printing its own lines:
     ingest.py``'s full ``run_load`` geometry (20 000 rows, 64
     partitions, 8 chunks) against ``build`` of the same data, both
     serving on the card: meta, regions and a search of 500 queries
-    bit-identical, and the ``LoadReport``'s counts.
+    bit-identical, and the ``LoadReport``'s counts;
+12. the multi-node pools on phase 3's index, every shard an in-process
+    child on the one card: (a) ``pool="sim_rdma"`` in phase 5's exact
+    scan and phase 6's int8 flat configurations, bit-identical to
+    ``LocalPool`` with equal counted stats, each verb's modeled seconds
+    the fabric formula over its charges; (b) ``pool="sharded"`` over 4
+    sim-RDMA children on ``benchmarks/torch_pool.py``'s straggler
+    fabrics, placements ``round_robin`` and ``freq``, through its zipf
+    workload (16 batches of 64), every batch bit-identical to
+    ``LocalPool`` and its round trips equal to a count made apart from
+    the pool's code, with the per-shard staged bytes, the modeled us a
+    query, the gather launches and host syncs a batch; then phase 6's
+    int8 flat configuration over 4 children (``quant_topk`` over the
+    fanned-out flat view); (c) 3 shards at ``replication=2``: a child
+    killed mid-stream, inserts, ``add_shard`` and ``remove_shard``, each
+    step bit-identical to ``LocalPool``; (d) ``benchmarks/torch_pool.py
+    --smoke``, equal to ``BENCH_pool.json`` but the wall clock;
+13. ``benchmarks/torch_serving.py --smoke``: the counted table equal to
+    ``BENCH_serving.json``'s, the wall-clock rows printed (smoke size).
+    The engines of 12d and 13 gather through the kernel too.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
 planned from the engine's embedding of the prompts, and the launches of
-the searches of phases 10 and 11 (recorded there, on the buffers they
+the searches of phases 10-13 (recorded there, on the buffers they
 read); ``decode_attention`` is held at the inputs of phase 9's first
 decode call (captured there) and at a long-context shape (B=16,
 S=32768); ``quant_topk`` is also held at the flat shape at k = 256 and
@@ -98,6 +118,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -106,7 +127,9 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -115,8 +138,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmarks import (torch_common, torch_quant,  # noqa: E402
-                        torch_throughput)
+from benchmarks import (torch_common, torch_pool,  # noqa: E402
+                        torch_quant, torch_serving, torch_throughput)
 from repro_torch import DHNSWEngine, EngineConfig  # noqa: E402
 from repro_torch.core import device_store as DS  # noqa: E402
 from repro_torch.core import layout as LA  # noqa: E402
@@ -139,6 +162,10 @@ from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
     dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
 from repro_torch.models import layers as LY  # noqa: E402
+from repro_torch.pool import LocalPool  # noqa: E402
+from repro_torch.pool.protocol import (  # noqa: E402
+    PoolUnavailableError, span_wire_bytes)
+from repro_torch.pool.sharded import ShardedPool  # noqa: E402
 from repro_torch.quant.codec import quantize_groups  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     DECODE_SPAN, DocStore, RagServeEngine)
@@ -168,6 +195,9 @@ RAG = dict(doc_len=240, prompt_len=64, batch=8, max_new_tokens=32,
 DECODE_LONG = dict(B=16, S=32768)   # decode_32k's length, batch cut to 16
 # phase 11: benchmarks/ingest.py's full run_load geometry (8 chunks)
 LOAD = dict(n=20_000, n_rep=64, n_chunks=8, n_queries=500, k=10)
+# phase 12b: benchmarks/torch_pool.py's full shard cell (run_shards) at 4
+# shards on phase 3's index
+SHARD = dict(n_shards=4, n_batches=16, per_batch=64, migrate_every=64)
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
 # they differ by at most one step of each element); in f32 at the gpu
@@ -333,6 +363,17 @@ def exact_config(n_rep: int, doorbell: int, search_mode: str = "scan",
                         use_gather_kernel=gather)
 
 
+def flat_config(n_rep: int, doorbell: int,
+                quant_kernel: str = "auto") -> EngineConfig:
+    """The int8 flat main path (phase 6): int8 scan, b=6, ``cache_frac``
+    0.6, ``exact_frac`` 0.25, stage 1 over the flat view through
+    ``quant_kernel``."""
+    return EngineConfig(mode="full", search_mode="scan", b=6, n_rep=n_rep,
+                        quant="int8", quant_kernel=quant_kernel,
+                        cache_frac=0.6, exact_frac=0.25, doorbell=doorbell,
+                        fabric=RDMA_100G)
+
+
 def pairs_config(n_rep: int, doorbell: int, search_mode: str = "scan",
                  gather: bool = True) -> EngineConfig:
     """The int8 per-pair path: ``benchmarks/torch_quant.py``'s per-pair
@@ -437,7 +478,7 @@ def gather_launches(exact_gathers, pair_gathers, rag_gathers=(),
     then scan), then phase 8's counted run in each search mode
     (``pair_gathers``: mode -> the result of ``pair_path_gathers``), then
     phase 9's retrieval (``rag_path_gathers``' result), then the launches
-    phases 10 and 11 recorded (``recorded_launches``)."""
+    phases 10-13 recorded (``recorded_launches``)."""
     out = [(EXACT_BUFS, ids) for _ in ("graph", "scan")
            for ids in exact_gathers[0]]
     for batches in pair_gathers.values():
@@ -519,7 +560,7 @@ def _gather_record(bufs, launches, device, timed: bool,
             del src, dst
         if bad.item():
             raise AssertionError("gather_spans flagged an id out of range")
-    log(f"[4 kernels] gather_spans, every span read of phases 5 and 8-11 "
+    log(f"[4 kernels] gather_spans, every span read of phases 5 and 8-13 "
         f"({len(launches)} launches, "
         f"{sum(len(names) for names, _ in launches)} buffer reads): "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
@@ -1000,7 +1041,7 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
                   k: int = 20, decode_shapes=(), sweep: bool = False,
                   extra_bufs=None) -> list:
     """Phase 4: each kernel against its plain version at the paths'
-    shapes.  gather_blocks: every launch of phases 5, 8 and 9
+    shapes.  gather_blocks: every launch of phases 5, 8-13
     (``gather_launches``: one per span read) on its staged buffers (int32
     graph blocks, f32 vector blocks, int8 codes, f32 scales), exactly
     equal.  quant_topk:
@@ -1010,7 +1051,7 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
     the quant_topk call.  Top-k ids equal up to ties and distances within
     rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
     ``_decode_record``), when given.  ``extra_bufs`` names the buffers
-    of the launches phases 10 and 11 recorded.  Beside the path's calls,
+    of the launches phases 10-13 recorded.  Beside the path's calls,
     ``quant_topk`` is held at the flat shape at k = 256 and 1024 (the
     large-k route) and on group-2 codes of the same rows (the per-code
     scale path), and ``distance_topk`` at k = 256 (``wide_topk``).  Times
@@ -1217,10 +1258,7 @@ def phase_int8(ds, meta, qstore, device, *, k: int, doorbell: int,
     B, n = ds.queries.shape[0], ds.data.shape[0]
 
     def make(qk):
-        cfg = EngineConfig(mode="full", search_mode="scan", b=6,
-                           n_rep=meta.n_partitions, quant="int8",
-                           quant_kernel=qk, cache_frac=0.6, exact_frac=0.25,
-                           doorbell=doorbell, fabric=RDMA_100G)
+        cfg = flat_config(meta.n_partitions, doorbell, qk)
         return DHNSWEngine(cfg, device=device).adopt_built(
             meta, dataclasses.replace(qstore), ds.data)
     outs = _in_turns(make, ("ref", "auto"), ds.queries, k, device)
@@ -1604,6 +1642,43 @@ class CallLog:
         setattr(self.module, self.name, self.real)
 
 
+class PathLog:
+    """The launches and gather calls of a path's searches (phases 10-13):
+    inside ``path()`` every launch count starts at 0 and is read at the
+    end (into the dict it yields, and summed into ``launches``), and each
+    ``gather_spans`` call is recorded (its buffers and ids) so phase 4
+    holds the gather at these launches; on the card the gather launches
+    must equal the recorded calls.  ``search`` runs one batch as a path
+    and leaves in ``trips`` the round trips a sharded pool's ledger must
+    have charged for it (``FanoutTrips``; None for other pools)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.launches = {name: 0 for name in KERNEL_OPS}
+        self.calls = []
+        self.trips = None
+
+    @contextlib.contextmanager
+    def path(self):
+        n = {}
+        with CallLog(GO, "gather_spans") as calls:
+            _reset_launches()
+            yield n
+            n.update(_launches())
+        for name, c in n.items():
+            self.launches[name] += c
+        if self.device.type == "cuda" and (n["gather_blocks"]
+                                           != len(calls.calls)):
+            raise AssertionError("gather launches and recorded calls differ")
+        self.calls += calls.calls
+
+    def search(self, eng, queries, k: int):
+        with FanoutTrips(eng.pool) as trips, self.path():
+            out = _search(eng, queries, k, self.device)
+        self.trips = trips.total
+        return out
+
+
 def recorded_launches(calls, bufs: dict, tag: str) -> list:
     """Recorded ``gather_spans`` calls as ``gather_launches`` entries: each
     staged buffer gets a name in ``bufs`` (``tag`` and a serial number,
@@ -1823,10 +1898,7 @@ def phase_insert(ds, meta, store, qstore, device, *, k: int, doorbell: int,
                            device=dev).adopt_built(
             meta, copy.deepcopy(store), ds.data)
     eng = exact_engine(device)
-    qcfg = EngineConfig(mode="full", search_mode="scan", b=6,
-                        n_rep=meta.n_partitions, quant="int8",
-                        quant_kernel="auto", cache_frac=0.6, exact_frac=0.25,
-                        doorbell=doorbell, fabric=RDMA_100G)
+    qcfg = flat_config(meta.n_partitions, doorbell)
     q8 = DHNSWEngine(qcfg, device=device).adopt_built(
         meta, copy.deepcopy(qstore), ds.data)
     twin = exact_engine(torch.device("cpu"))
@@ -1914,17 +1986,13 @@ def phase_insert(ds, meta, store, qstore, device, *, k: int, doorbell: int,
             torch.cuda.synchronize()
         return (*out, time.perf_counter() - t0)
 
-    with CallLog(GO, "gather_spans") as calls:
-        _reset_launches()
+    exact_log = PathLog(device)
+    with exact_log.path() as n_exact:
         self_q = _self_recall(eng, held[:64], n0 + np.arange(len(held[:64])))
         self_b = _self_recall(eng, burst[:32],
                               np.arange(n0 + n_held, n0 + n_held + 32))
         d, g, st, wall = timed(eng, ds.queries)
-        n_exact = _launches()
-    recorded = recorded_launches(calls.calls, bufs, "insert.")
-    if on_card and n_exact["gather_blocks"] != len(calls.calls):
-        raise AssertionError("insert: gather launches and recorded calls "
-                             "differ")
+    recorded = recorded_launches(exact_log.calls, bufs, "insert.")
     _check_output(d, g, len(ds.queries), k, len(grown), "insert exact")
     rec = recall_at_k(g, gt)
     if self_q != 1.0 or self_b != 1.0:
@@ -2027,21 +2095,17 @@ def phase_load(device, *, n: int, n_rep: int, n_chunks: int,
     if not rep.peak_builder_bytes < rep.dataset_bytes / 2:
         raise AssertionError(f"load: peak builder {rep.peak_builder_bytes} "
                              f"B of a {rep.dataset_bytes} B dataset")
-    launches = {name: 0 for name in KERNEL_OPS}
-    with CallLog(GO, "gather_spans") as calls:
-        out = []
-        for e in (mem, stream):
-            out.append(_search(e, ds.queries, k, device))
-            for key in launches:
-                launches[key] += out[-1][4][key]
-    (d0, g0, st0, w0, _), (d1, g1, st1, w1, _) = out
+    load_log = PathLog(device)
+    (d0, g0, st0, w0, _), (d1, g1, st1, w1, _) = (
+        load_log.search(e, ds.queries, k) for e in (mem, stream))
+    launches = load_log.launches
     if not (np.array_equal(d0, d1) and np.array_equal(g0, g1)
             and _counted_equal(st0, st1)):
         raise AssertionError("load: streamed and in-memory engines search "
                              "differently")
     _check_output(d0, g0, n_queries, k, n, "load")
     bufs = {}
-    recorded = recorded_launches(calls.calls, bufs, "load.")
+    recorded = recorded_launches(load_log.calls, bufs, "load.")
     log(f"[11 load] {n} rows, n_rep {n_rep}: build {t1 - t0:.2f} s, "
         f"build_streaming {t2 - t1:.2f} s in {rep.chunks_total} chunks of "
         f"{rows} (0 failed), peak builder {rep.peak_builder_bytes / 1e6:.3f}"
@@ -2051,6 +2115,481 @@ def phase_load(device, *, n: int, n_rep: int, n_chunks: int,
         f"{recall_at_k(g0, ds.gt_ids[:, :k]):.4f}, wall {w0:.4f} / "
         f"{w1:.4f} s | gather launches {launches['gather_blocks']}")
     return launches, recorded, bufs
+
+
+# ------------------------------------------------ multi-node pools, serving
+
+class _DeadChild:
+    """A vanished memory node: every verb raises ``PoolUnavailableError``,
+    as a transport with a dead socket does."""
+
+    _VERBS = ("read_spans", "read_rows", "read_quant_rows", "append",
+              "repack", "refresh_blocks", "adopt", "_stage_quant",
+              "snapshot", "close")
+
+    def __getattr__(self, name):
+        if name in self._VERBS:
+            def boom(*a, **kw):
+                raise PoolUnavailableError("node down (chip_smoke stub)")
+            return boom
+        raise AttributeError(name)
+
+
+class FanoutTrips:
+    """While active, counts the round trips a sharded pool's ledger must
+    charge, apart from the pool's own fan-out code.  Each charged call of
+    ``read_spans``, ``post_span_reads`` or ``post_row_reads`` is split by
+    destination: a span (or row group) goes to ``owner_of_pid`` as the
+    call starts, or, where that is a dead child, to the shard serving it
+    after the call (the failover retry, a part of its own).  Each part
+    is cut into doorbell chunks of ceil(descriptors / max_doorbell)
+    trips, and the call charges the most of any part: the shards answer
+    in parallel.  ``total`` stays None for a pool that is not sharded."""
+
+    _VERBS = ("read_spans", "post_span_reads", "post_row_reads")
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.total = 0 if isinstance(pool, ShardedPool) else None
+
+    def __enter__(self) -> "FanoutTrips":
+        if self.total is not None:
+            for verb in self._VERBS:
+                setattr(self.pool, verb,
+                        self._wrap(verb, getattr(self.pool, verb)))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.total is not None:
+            for verb in self._VERBS:
+                delattr(self.pool, verb)
+
+    def _units(self, verb, args, kw) -> tuple:
+        """(pids, descriptors of each) of one call; pids None when the
+        call names no destinations (one node's charge)."""
+        spec = self.pool.spec
+        if verb == "post_row_reads":
+            groups = list(args[0])
+            return [p for p, _ in groups], [c for _, c in groups]
+        per = span_wire_bytes(spec, quant=kw.get("quant", False),
+                              quant_graph=kw.get("quant_graph", True))[1]
+        if verb == "read_spans":
+            pids = list(np.asarray(args[0]).reshape(-1))
+        else:
+            pids = kw.get("pids")
+            if pids is None:
+                return None, [per] * int(args[0])
+            pids = list(np.asarray(pids).reshape(-1))
+        return pids, [per] * len(pids)
+
+    def _wrap(self, verb, real):
+        pool = self.pool
+
+        def owner(pid):           # a row group of no partition: shard 0
+            return pool.owner_of_pid(pid) if pid >= 0 else 0
+
+        def call(*args, ledger=None, **kw):
+            if ledger is None:
+                return real(*args, ledger=ledger, **kw)
+            pids, descs = self._units(verb, args, kw)
+            dead = {s for s, c in enumerate(pool.children)
+                    if isinstance(c, _DeadChild)}
+            before = (None if pids is None
+                      else [owner(p) for p in pids])
+            out = real(*args, ledger=ledger, **kw)
+            parts = {}
+            for i, d in enumerate(descs):
+                key = 0 if before is None else before[i]
+                if key in dead:
+                    key = ("retry", owner(pids[i]))
+                parts.setdefault(key, []).append(d)
+            db = max(int(kw.get("doorbell", 1)), 1)
+            cap = ledger.fabric.max_doorbell
+            self.total += max((sum(-(-sum(part[j:j + db]) // cap)
+                                   for j in range(0, len(part), db))
+                               for part in parts.values()), default=0)
+            return out
+        return call
+
+
+def host_syncs(fn, device):
+    """(``fn()``, the host syncs it made on the card): torch's sync debug
+    mode warns at every synchronizing call (a ``.item()``, a copy to the
+    host), and the warnings are counted.  None on the CPU."""
+    if device.type != "cuda":
+        return fn(), None
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _bit_equal(a, b, what: str) -> None:
+    """Two search results (d, g, ...) are bit-identical."""
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError(f"{what}: results differ from LocalPool's")
+
+
+def _fanout_counted(st, local, trips, what: str) -> None:
+    """A sharded search's counted stats against LocalPool's on the same
+    batch: everything the compute side counts is equal, and so are the
+    bytes and descriptors of its ledger (each charge slice sums over the
+    shards); its round trips equal ``trips``, the count ``FanoutTrips``
+    made of the batch's charges (per-shard doorbell batches reduced by
+    max: the shards answer in parallel)."""
+    keys = ("n_rounds", "n_pairs", "cache_hits", "n_fetches",
+            "rerank_rows", "rerank_hit_rows", "exact_admitted")
+    net, lnet = st["net"], local["net"]
+    if not (all(st.get(key) == local.get(key) for key in keys)
+            and all(net[key] == lnet[key]
+                    for key in ("bytes", "descriptors", "bytes_saved"))
+            and trips is not None and net["round_trips"] == trips):
+        raise AssertionError(f"{what}: counted {net} vs LocalPool's {lnet}, "
+                             f"{trips} trips expected")
+
+
+def _sim_formula(calls, fabric) -> dict:
+    """Per verb: the fabric formula over the charges ``_transport`` saw,
+    in their order (trips * rtt + descriptors * per_op + bytes / bw)."""
+    out = {}
+    for verb, b, d, t in calls:
+        out[verb] = out.get(verb, 0.0) + (
+            t * fabric.rtt_s + d * fabric.per_op_s + b / fabric.bw_Bps)
+    return out
+
+
+def phase_sim_rdma(ds, meta, store, qstore, device, *, k: int, doorbell: int,
+                   log_: PathLog) -> None:
+    """Phase 12a: ``pool="sim_rdma"`` on ``RDMA_100G`` in phase 5's exact
+    scan configuration and phase 6's int8 flat one, one batch each, held
+    in turns against the same configuration over ``LocalPool``: gids,
+    distances and counted stats bit-identical, and each verb's modeled
+    seconds equal to the fabric formula over that verb's charges (within
+    1e-12 relative)."""
+    B = len(ds.queries)
+    exact = exact_config(meta.n_partitions, doorbell, "scan")
+    flat = flat_config(meta.n_partitions, doorbell)
+    for label, cfg, st0 in (("exact scan", exact, store),
+                            ("int8 flat", flat, qstore)):
+        runs = {}
+        for pool in ("local", "sim_rdma", "sim_rdma", "local"):
+            eng = DHNSWEngine(dataclasses.replace(cfg, pool=pool),
+                              device=device).adopt_built(
+                meta, dataclasses.replace(st0), ds.data)
+            charges = []
+            if pool == "sim_rdma":
+                real = eng.pool._transport
+
+                def seen(verb, n_bytes, descs, trips, real=real,
+                         charges=charges):
+                    charges.append((verb, float(n_bytes), float(descs),
+                                    float(trips)))
+                    return real(verb, n_bytes, descs, trips)
+                eng.pool._transport = seen
+            first = pool not in runs
+            out = (log_.search(eng, ds.queries, k) if first
+                   and pool == "sim_rdma" else
+                   _search(eng, ds.queries, k, device))
+            runs.setdefault(pool, []).append((out, eng, charges))
+        (lo, _, _), (so, sim, charges) = runs["local"][0], runs["sim_rdma"][0]
+        _bit_equal(so, lo, f"sim_rdma {label}")
+        if not _counted_equal(so[2], lo[2]):
+            raise AssertionError(f"sim_rdma {label}: counted stats differ")
+        _check_output(so[0], so[1], B, k, ds.data.shape[0], f"sim {label}")
+        want = _sim_formula(charges, RDMA_100G)
+        got = sim.pool.sim_s
+        if set(got) != set(want) or any(
+                abs(got[v] - want[v]) > 1e-12 * abs(want[v]) for v in want):
+            raise AssertionError(f"sim_rdma {label}: sim_s {got}, the fabric "
+                                 f"formula {want}")
+        walls = {p: [r[0][3] for r in rs] for p, rs in runs.items()}
+        log(f"[12a sim_rdma {label}] bit-identical to LocalPool, counted net "
+            f"equal ({_counted(so[2])}) | modeled "
+            f"{sim.pool.sim_total_s / B * 1e6:.3f} us a query "
+            f"({ {v: round(s * 1e6, 2) for v, s in got.items()} } us, each "
+            f"verb = the fabric formula over its {len(charges)} charges) | "
+            f"wall {so[3] / B * 1e6:.1f} us a query | wall s sim_rdma "
+            f"{walls['sim_rdma']}, local {walls['local']} (local, sim, sim, "
+            f"local) | launches {so[4]}")
+        del runs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_sharded(ds, meta, store, qstore, device, *, k: int, doorbell: int,
+                  n_shards: int, n_batches: int, per_batch: int,
+                  migrate_every: int, log_: PathLog) -> None:
+    """Phase 12b: ``pool="sharded"`` over ``n_shards`` sim-RDMA children on
+    ``straggler_fabrics`` (``benchmarks/torch_pool.py``'s shard cell: b=3,
+    ef=48, cache_frac 0.1, doorbell 16, the CUDA gather), placements
+    ``round_robin`` and ``freq``, through the cell's zipf workload
+    (``n_batches`` of ``per_batch`` of the queries).  Every batch is
+    bit-identical to a LocalPool engine's on the same batch; the staged
+    blocks partition the region at placement, and after the batches every
+    group is staged on its serving shard; each shard's device bytes are its staged blocks plus the meta
+    table; ``freq`` models less time a query than ``round_robin``.  Then
+    phase 6's int8 flat configuration over ``n_shards`` local children:
+    the fanned-out flat view equals LocalPool's, stage 1 runs through
+    ``quant_topk``, and the results are bit-identical."""
+    spec = store.spec
+    batches = [ds.queries[i] for i in torch_pool.zipf_batches(
+        len(ds.queries), n_batches, per_batch)]
+    base = dict(n_shards=n_shards, n_rep=meta.n_partitions,
+                migrate_every=migrate_every, doorbell=doorbell)
+    local = DHNSWEngine(dataclasses.replace(
+        torch_pool.shard_config(placement="round_robin", **base),
+        pool="local"), device=device).adopt_built(
+        meta, dataclasses.replace(store), ds.data)
+    want, local_launch = [], 0
+    for qb in batches:
+        want.append(_search(local, qb, k, device))
+        local_launch += want[-1][4]["gather_blocks"]
+    local_wall = sum(w[3] for w in want)
+    _, local_syncs = host_syncs(lambda: local.search(batches[0], k=k),
+                                device)
+    del local
+    rows = {}
+    for placement in ("round_robin", "freq"):
+        cfg = torch_pool.shard_config(placement=placement, **base)
+        mem0 = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+        eng = DHNSWEngine(cfg, device=device).adopt_built(
+            meta, dataclasses.replace(store), ds.data)
+        mem = (torch.cuda.memory_allocated() - mem0
+               if device.type == "cuda" else None)
+        stg0 = eng.pool.snapshot()["staging"]
+        if sum(stg0["blocks_staged_by_shard"]) != spec.n_blocks:
+            raise AssertionError(f"sharded {placement}: staged blocks "
+                                 f"{stg0['blocks_staged_by_shard']} do not "
+                                 f"partition {spec.n_blocks}")
+        gathers, wall = 0, 0.0
+        for i, qb in enumerate(batches):
+            out = log_.search(eng, qb, k)
+            _bit_equal(out, want[i], f"sharded {placement} batch {i}")
+            _fanout_counted(out[2], want[i][2], log_.trips,
+                            f"sharded {placement} batch {i}")
+            gathers += out[4]["gather_blocks"]
+            wall += out[3]
+        snap = eng.pool.snapshot()
+        row = torch_pool.shard_row(snap, n_shards=n_shards,
+                                   placement=placement,
+                                   nq=n_batches * per_batch, wall=wall)
+        stg = snap["staging"]
+        unstaged = [g for g in range(spec.n_groups) if g not in
+                    eng.pool.children[eng.pool.owner_of_group(g)]._owned]
+        if unstaged:
+            raise AssertionError(f"sharded {placement}: groups {unstaged} "
+                                 f"are not staged on their serving shard")
+        per_blk = spec.block_bytes()
+        mt = store.meta_table.nbytes
+        for s, (nb, dev) in enumerate(zip(stg["blocks_staged_by_shard"],
+                                          stg["device_bytes_by_shard"])):
+            if dev != nb * per_blk + mt:
+                raise AssertionError(f"sharded {placement} shard {s}: "
+                                     f"{dev} device bytes, {nb} blocks")
+        _, syncs = host_syncs(lambda: eng.search(batches[0], k=k), device)
+        rows[placement] = row
+        log(f"[12b sharded {placement}] {n_shards} shards, {n_batches} zipf "
+            f"batches of {per_batch}: each bit-identical to LocalPool | "
+            f"sim {row['sim_us_per_q']} us/q, {row['kb_per_q']} KB/q, "
+            f"{row['round_trips_per_q']} trips/q, byte imbalance "
+            f"{row['byte_imbalance']}, migrations {row['migrations']}, "
+            f"groups {row['groups_by_shard']} | staged MB "
+            f"{row['staged_mb_by_shard']} (blocks "
+            f"{stg['blocks_staged_by_shard']}, restaged "
+            f"{stg['restaged_blocks']}) = blocks x {per_blk} B + the {mt} B "
+            f"meta table, sum {sum(stg['device_bytes_by_shard']) / 1e6:.3f} "
+            f"MB beside memory_allocated's delta at adoption "
+            + (f"{mem / 1e6:.3f} MB" if mem is not None else "not measured")
+            + f" (it holds the compute side's caches and meta-HNSW too) | "
+            f"gather launches a batch {gathers / n_batches:.2f} (LocalPool "
+            f"{local_launch / n_batches:.2f}) | host syncs of one batch "
+            f"{syncs} (LocalPool {local_syncs}) | wall of the batches "
+            f"{wall:.4f} s (LocalPool {local_wall:.4f} s)")
+        del eng
+    if not rows["freq"]["sim_us_per_q"] < rows["round_robin"]["sim_us_per_q"]:
+        raise AssertionError(f"freq {rows['freq']['sim_us_per_q']} us/q not "
+                             f"below round_robin's "
+                             f"{rows['round_robin']['sim_us_per_q']}")
+
+    flat = flat_config(meta.n_partitions, doorbell)
+    engines = {}
+    for pool in ("local", "sharded"):
+        engines[pool] = DHNSWEngine(
+            dataclasses.replace(flat, pool=pool, n_shards=n_shards),
+            device=device).adopt_built(meta, dataclasses.replace(qstore),
+                                       ds.data)
+    lo = _search(engines["local"], ds.queries, k, device)
+    so = log_.search(engines["sharded"], ds.queries, k)
+    _bit_equal(so, lo, "sharded int8 flat")
+    _fanout_counted(so[2], lo[2], log_.trips, "sharded int8 flat")
+    cl, cs = engines["local"].client, engines["sharded"].client
+    for a in ("_flat_codes", "_flat_scales", "_flat_cols"):
+        if cl._flat_n != cs._flat_n or not torch.equal(
+                getattr(cl, a)[:cl._flat_n], getattr(cs, a)[:cs._flat_n]):
+            raise AssertionError(f"sharded int8 flat: {a} differs from "
+                                 f"LocalPool's flat view")
+    want_impl = "cuda" if device.type == "cuda" else "ref"
+    if so[2]["stage1_impl"] != want_impl or (
+            device.type == "cuda" and so[4]["quant_topk"] == 0):
+        raise AssertionError(f"sharded int8 flat: stage 1 "
+                             f"{so[2]['stage1_impl']}, launches {so[4]}")
+    log(f"[12b sharded int8 flat] {n_shards} local children: the fanned-out "
+        f"flat view ({so[2]['flat_rows']} rows: codes, scales, payload) "
+        f"equal to LocalPool's; stage 1 {so[2]['stage1_impl']}, results "
+        f"bit-identical | {_counted(so[2])} (LocalPool trips "
+        f"{lo[2]['net']['round_trips']}) | launches {so[4]} | wall "
+        f"{so[3]:.4f} s, LocalPool {lo[3]:.4f} s")
+    del engines
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_failover(ds, meta, store, device, *, k: int, doorbell: int,
+                   n_shards: int = 3, n_insert: int = 16,
+                   log_: PathLog) -> None:
+    """Phase 12c: replication and failover.  ``pool="sharded"`` over
+    ``n_shards`` local children at ``replication=2`` in phase 5's exact
+    scan configuration, on deep copies of phase 3's region, beside a
+    LocalPool engine making the same calls: two batches, then child 0 is
+    swapped for a dead node; the next batch raises nothing and stays
+    bit-identical, its counted stats as ``_fanout_counted`` holds them
+    (the failed slice charged nothing); one death, no lost group, and
+    only the dead shard's groups re-staged.  Then ``n_insert`` inserts
+    (equal gids) and a search, then ``add_shard`` and ``remove_shard``,
+    each followed by a bit-identical search."""
+    spec = store.spec
+    cfg = exact_config(meta.n_partitions, doorbell, "scan")
+    local = DHNSWEngine(cfg, device=device).adopt_built(
+        meta, copy.deepcopy(store), ds.data)
+    eng = DHNSWEngine(dataclasses.replace(
+        cfg, pool="sharded", n_shards=n_shards, replication=2),
+        device=device).adopt_built(meta, copy.deepcopy(store), ds.data)
+    pool = eng.pool
+    per = len(ds.queries) // 4
+    qs = [ds.queries[i * per:(i + 1) * per] for i in range(4)]
+
+    walls = []
+
+    def both(q, what):
+        lo = _search(local, q, k, device)
+        so = log_.search(eng, q, k)
+        _bit_equal(so, lo, what)
+        _fanout_counted(so[2], lo[2], log_.trips, what)
+        walls.append((round(so[3], 4), round(lo[3], 4)))
+        return so, lo
+    for i in range(2):
+        both(qs[i], f"failover batch {i}")
+    held0 = sum(1 for row in pool._replicas if (row == 0).any())
+    pool.children[0] = _DeadChild()
+    so, lo = both(qs[2], "failover batch 2 (shard 0 dead)")
+    fo = dict(pool.failover)
+    restaged = sum(c.staging["restaged_blocks"] for c in pool.children[1:])
+    if (fo["deaths"], fo["lost_groups"]) != (1, 0) or not (
+            0 < fo["rereplicated_groups"] <= held0) or (
+            restaged != fo["rereplicated_groups"] * spec.group_blocks):
+        raise AssertionError(f"failover: {fo}, {restaged} blocks re-staged, "
+                             f"shard 0 held {held0} groups")
+    new = np.ascontiguousarray(ds.queries[:n_insert])
+    g_local, g_shard = local.insert(new), eng.insert(new)
+    if not np.array_equal(g_local, g_shard):
+        raise AssertionError(f"failover insert: gids {g_shard[:4]} vs "
+                             f"{g_local[:4]}")
+    both(qs[0], "failover after the inserts")
+    added = pool.add_shard(lambda st: LocalPool(st, device=device,
+                                                use_gather_kernel=True))
+    both(qs[0], "failover after add_shard")
+    pool.remove_shard(1)
+    last, _ = both(qs[0], "failover after remove_shard")
+    snap = pool.snapshot()
+    log(f"[12c failover] {n_shards} shards, replication 2: child 0 dead "
+        f"before batch 2, which raised nothing and stayed bit-identical | "
+        f"its {_counted(so[2])}; LocalPool trips "
+        f"{lo[2]['net']['round_trips']} | failover {fo} | {restaged} blocks re-staged "
+        f"= {fo['rereplicated_groups']} groups of the {held0} shard 0 held "
+        f"x {spec.group_blocks} | {n_insert} inserts: gids equal | "
+        f"add_shard -> {added} ({snap['elastic']['moved_groups']} groups "
+        f"moved), remove_shard(1): results unchanged | alive "
+        f"{snap['alive']}, groups {snap['groups_by_shard']}, replicas "
+        f"{snap['replicas_by_shard']} | wall s (sharded, LocalPool) of the "
+        f"six searches (two, after the death, the inserts, add_shard, "
+        f"remove_shard) {walls} | last launches {last[4]}")
+    del local, eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _bench_fields_equal(got: dict, want: dict, table: str) -> None:
+    """Every field of a benchmark table but the wall clock is equal."""
+    rows_g = got[table] if isinstance(got[table], list) else [got[table]]
+    rows_w = want[table] if isinstance(want[table], list) else [want[table]]
+    if len(rows_g) != len(rows_w):
+        raise AssertionError(f"{table}: {len(rows_g)} rows, baseline "
+                             f"{len(rows_w)}")
+    for g, w in zip(rows_g, rows_w):
+        diff = sorted(key for key in set(g) | set(w)
+                      if key != "wall_s" and g.get(key) != w.get(key))
+        if diff:
+            raise AssertionError(f"{table}: {diff} differ from the baseline")
+
+
+def phase_pool_bench(device, log_: PathLog) -> None:
+    """Phase 12d: ``benchmarks/torch_pool.py --smoke`` on ``device``: every
+    field of ``rows``, ``shard_rows`` and ``chaos_latency`` but the wall
+    clock equals ``benchmarks/baselines/BENCH_pool.json``'s.  Its engines
+    gather through the CUDA kernel, one path in ``log_``."""
+    base = json.loads((ROOT / "benchmarks" / "baselines"
+                       / "BENCH_pool.json").read_text())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, log_.path() as launches:
+        blob = torch_pool.run(smoke=True, out=f"{tmp}/BENCH_torch_pool.json",
+                              device=device)
+    wall = time.perf_counter() - t0
+    for table in ("rows", "shard_rows", "chaos_latency"):
+        _bench_fields_equal(blob, base, table)
+    sr = {r["placement"]: r for r in blob["shard_rows"]}
+    cl = blob["chaos_latency"]
+    log(f"[12d torch_pool --smoke] {len(blob['rows'])} fabric rows, "
+        f"{len(blob['shard_rows'])} shard rows and the chaos_latency row "
+        f"equal to BENCH_pool.json but wall_s | shard_rows 2 shards: "
+        + ", ".join(f"{p} {r['round_trips_per_q']} trips/q {r['kb_per_q']} "
+                    f"KB/q staged_mb_max {r['staged_mb_max']} sim "
+                    f"{r['sim_us_per_q']} us/q" for p, r in sr.items())
+        + f" | chaos_latency flagged {cl['flagged_shard']} mismatches "
+        f"{cl['mismatches']} p99_on {cl['p99_on_us']} us burn_peak "
+        f"{cl['burn_peak']} | not run: {sorted(blob['not_ported'])} | "
+        f"{wall:.1f} s | launches {launches}")
+
+
+def phase_serving(device, smi: str, log_: PathLog) -> None:
+    """Phase 13: ``benchmarks/torch_serving.py --smoke`` on ``device``: the
+    ``counted`` table equals ``BENCH_serving.json``'s; the wall-clock rows
+    (smoke size: a few requests a client) are printed beside the card's
+    name and power limit, never compared.  Its engines gather through
+    the CUDA kernel, one path in ``log_``."""
+    base = json.loads((ROOT / "benchmarks" / "baselines"
+                       / "BENCH_serving.json").read_text())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, log_.path() as launches:
+        blob = torch_serving.run(smoke=True, device=device,
+                                 out=f"{tmp}/BENCH_torch_serving.json")
+    wall = time.perf_counter() - t0
+    if blob["counted"] != base["counted"]:
+        raise AssertionError(f"serving counted {blob['counted']} != the "
+                             f"baseline's {base['counted']}")
+    for r in blob["counted"]:
+        log(f"[13 serving] counted C={r['clients']} {r['impl']}: "
+            f"{r['round_trips_per_q']} trips/q {r['descriptors_per_q']} "
+            f"descriptors/q {r['kb_per_q']} KB/q fused "
+            f"{r['mean_fused_batch']} (= BENCH_serving.json)")
+    for r in blob["rows"]:
+        log(f"[13 serving] wall C={r['clients']} {r['impl']}: {r['qps']} qps"
+            f", p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms ({smi}; smoke "
+            f"size, not compared)")
+    log(f"[13 serving] {wall:.1f} s | launches {launches}")
 
 
 def main(argv=None) -> int:
@@ -2094,10 +2633,24 @@ def main(argv=None) -> int:
         doorbell=FULL["doorbell"], scan_recall=scan_stats["recall_at_k"])
     load_launches, load_recorded, load_bufs = phase_load(
         device, doorbell=FULL["doorbell"], **LOAD)
+    pools = PathLog(device)
+    t12 = time.perf_counter()
+    phase_sim_rdma(ds, meta, store, qstore, device, k=FULL["k"],
+                   doorbell=FULL["doorbell"], log_=pools)
+    phase_sharded(ds, meta, store, qstore, device, k=FULL["k"],
+                  doorbell=FULL["doorbell"], log_=pools, **SHARD)
+    phase_failover(ds, meta, store, device, k=FULL["k"],
+                   doorbell=FULL["doorbell"], log_=pools)
+    phase_pool_bench(device, pools)
+    phase_serving(device, dev_info["smi"], pools)
+    log(f"[12-13] {time.perf_counter() - t12:.1f} s")
+    pool_bufs = {}
+    pool_recorded = recorded_launches(pools.calls, pool_bufs, "pool.")
     for name in launches:
-        launches[name] += ins_launches[name] + load_launches[name]
+        launches[name] += (ins_launches[name] + load_launches[name]
+                           + pools.launches[name])
     planned = gather_launches(gathers, pair_gathers, rag_gathers,
-                              ins_recorded + load_recorded)
+                              ins_recorded + load_recorded + pool_recorded)
     if launches["gather_blocks"] != len(planned):
         raise AssertionError(f"{launches['gather_blocks']} gather launches on "
                              f"the main path, {len(planned)} span reads "
@@ -2111,7 +2664,8 @@ def main(argv=None) -> int:
                                     K=k.shape[2], hd=q.shape[2],
                                     dtype=q.dtype, device=device))],
                             sweep=args.sweep,
-                            extra_bufs={**ins_bufs, **load_bufs})
+                            extra_bufs={**ins_bufs, **load_bufs,
+                                        **pool_bufs})
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] <= 0:

@@ -144,6 +144,11 @@ class DHNSWEngine:
                 raise ValueError(f"EngineConfig.{name}="
                                  f"{getattr(self.cfg, name)!r} not in "
                                  f"{allowed}")
+        if self.cfg.replication < 1 or (
+                self.cfg.replication > 1
+                and self.cfg.pool not in ("sharded", "remote")):
+            raise ValueError("replication needs a value >= 1, and > 1 "
+                             "needs a multi-node pool (sharded/remote)")
         self.client = ComputeClient(
             self.cfg, make_pool_factory(self.cfg, self.device), self.device)
 

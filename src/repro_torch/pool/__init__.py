@@ -1,16 +1,38 @@
 """Disaggregated-memory boundary: MemoryPool transports + ComputeClient.
 
-The port has the in-process transport (``LocalPool``, with the write
-verbs and the 1/N compacted staging); the simulated RDMA, sharded and
-remote transports raise until they are ported (ROADMAP "Modules to port"
-items 6 and 7).
+Port of ``repro/pool``.  Transports:
+
+* ``LocalPool``         — in-process device tensors, with the write verbs
+                          and the 1/N compacted staging;
+* ``SimulatedRDMAPool`` — + a per-verb latency/bandwidth model;
+* ``ShardedPool``       — the region split group-granularly across N
+                          child pools with per-shard doorbell fan-out,
+                          pluggable (migrating) placement, replication
+                          and failover.
+
+The remote transport (``pool="remote"``, ``shard_transport="remote"``)
+raises until ``net/`` is ported (ROADMAP "Modules to port" item 7).
+Every pool and every child is staged on the engine's ``device``.
 """
 from repro_torch.pool.compute import ComputeClient
 from repro_torch.pool.local import LocalPool
+from repro_torch.pool.placement import (FrequencyAwarePlacement,
+                                        PlacementPolicy,
+                                        RoundRobinPlacement,
+                                        SizeBalancedPlacement,
+                                        make_placement)
 from repro_torch.pool.protocol import MemoryPool, span_wire_bytes
+from repro_torch.pool.sharded import ShardedPool
+from repro_torch.pool.sim_rdma import (SimulatedRDMAPool, fabric_params,
+                                       fanout_dt)
 
-__all__ = ["MemoryPool", "LocalPool", "ComputeClient", "make_pool_factory",
-           "span_wire_bytes"]
+__all__ = ["MemoryPool", "LocalPool", "SimulatedRDMAPool", "ShardedPool",
+           "ComputeClient", "PlacementPolicy", "RoundRobinPlacement",
+           "SizeBalancedPlacement", "FrequencyAwarePlacement",
+           "make_placement", "make_pool_factory", "span_wire_bytes",
+           "fanout_dt", "fabric_params"]
+
+_REMOTE = ("is ported with net/ (ROADMAP 'Modules to port' item 7)")
 
 
 def make_pool_factory(cfg, device):
@@ -19,12 +41,43 @@ def make_pool_factory(cfg, device):
     if cfg.pool == "local":
         return lambda store: LocalPool(
             store, device=device, use_gather_kernel=cfg.use_gather_kernel)
-    if cfg.pool in ("sim_rdma", "sharded"):
-        raise NotImplementedError(
-            f"pool={cfg.pool!r} is ported with the multi-node pools "
-            "(ROADMAP 'Modules to port' item 6)")
+    if cfg.pool == "sim_rdma":
+        return lambda store: SimulatedRDMAPool(
+            store, device=device, fabric=cfg.fabric,
+            use_gather_kernel=cfg.use_gather_kernel)
     if cfg.pool == "remote":
-        raise NotImplementedError(
-            "pool='remote' is ported with net/ (ROADMAP 'Modules to port' "
-            "item 7)")
+        raise NotImplementedError(f"pool='remote' {_REMOTE}")
+    if cfg.pool == "sharded":
+        def child(fabric):
+            if cfg.shard_transport == "local":
+                return lambda store: LocalPool(
+                    store, device=device,
+                    use_gather_kernel=cfg.use_gather_kernel)
+            if cfg.shard_transport == "sim_rdma":
+                return lambda store: SimulatedRDMAPool(
+                    store, device=device, fabric=fabric,
+                    use_gather_kernel=cfg.use_gather_kernel)
+            if cfg.shard_transport == "remote":
+                raise NotImplementedError(
+                    f"shard_transport='remote' {_REMOTE}")
+            raise ValueError(
+                f"unknown shard transport {cfg.shard_transport!r}")
+
+        fabrics = (cfg.shard_fabrics if cfg.shard_fabrics is not None
+                   else (cfg.fabric,) * cfg.n_shards)
+        if len(fabrics) != cfg.n_shards:
+            raise ValueError(f"shard_fabrics has {len(fabrics)} entries "
+                             f"for n_shards={cfg.n_shards}")
+        if cfg.shard_transport == "remote" and cfg.bearer == "tcp":
+            eps = tuple(cfg.endpoints or ())
+            if len(eps) != cfg.n_shards:
+                raise ValueError(f"endpoints has {len(eps)} entries "
+                                 f"for n_shards={cfg.n_shards}")
+        children = [child(f) for f in fabrics]
+        return lambda store: ShardedPool(
+            store, children, device=device,
+            placement=make_placement(cfg.placement),
+            parallel=cfg.shard_parallel,
+            replication=cfg.replication, shard_budgets=cfg.shard_budgets,
+            straggler_check_every=cfg.straggler_check_every)
     raise ValueError(f"unknown pool transport {cfg.pool!r}")

@@ -204,6 +204,9 @@ class ComputeClient:
 
         # plan (compute-instance CPU role)
         t0 = time.perf_counter()
+        # a sharded pool keys each round's doorbell batches by the
+        # destination shard
+        owner_of = getattr(pool, "owner_of_pid", None)
         if cfg.mode == "naive":
             raw = SCH.naive_plan(pids)
             # every pair is its own READ round trip; dedup below is
@@ -214,7 +217,8 @@ class ComputeClient:
             cache = SCH.LRUCacheState(max(len(uniq), 1))
             plan = SCH.plan_batch(pids, cache, doorbell=1)
         else:
-            plan = SCH.plan_batch(pids, self.cache, doorbell=cfg.doorbell)
+            plan = SCH.plan_batch(pids, self.cache, doorbell=cfg.doorbell,
+                                  owner_of=owner_of)
         stats["plan_s"] = time.perf_counter() - t0
         TRACER.add("compute.plan", "compute", t0, stats["plan_s"],
                    rounds=len(plan.rounds), fetches=plan.n_fetches,
@@ -412,7 +416,9 @@ class ComputeClient:
             plan = SCH.plan_batch(pids, tiers.quant, doorbell=1)
         else:
             tiers = self.tiers
-            plan = SCH.plan_batch(pids, tiers.quant, doorbell=cfg.doorbell)
+            plan = SCH.plan_batch(pids, tiers.quant, doorbell=cfg.doorbell,
+                                  owner_of=getattr(pool, "owner_of_pid",
+                                                   None))
         stats["plan_s"] = time.perf_counter() - t0
         TRACER.add("compute.plan", "compute", t0, stats["plan_s"],
                    rounds=len(plan.rounds), fetches=plan.n_fetches,

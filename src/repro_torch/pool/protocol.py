@@ -17,10 +17,11 @@ dedup the charge).  ``ledger=None`` moves data without charging.  Pools
 keep running totals (``totals``) and per-verb invocation counts
 (``verbs``) beside the ledgers.
 
-This port has the in-process transport (``LocalPool``) with the write
-verbs (``append``, ``repack``, ``adopt``) and the mutation hooks the
-ingest compactor subscribes to; the per-verb latency histograms of the
-reference belong to the multi-node pools, which come later.
+Transports that model or measure a wire hook ``_transport``: the slice
+it returns is recorded into the per-(verb, shard) latency histograms
+(``hist``) the straggler detector reads.  The port has the in-process
+(``LocalPool``), simulated-RDMA (``SimulatedRDMAPool``) and sharded
+(``ShardedPool``) transports; the remote one waits for ``net/``.
 """
 from __future__ import annotations
 
@@ -40,9 +41,10 @@ from repro_torch.obs.trace import TRACER
 class PoolUnavailableError(ConnectionError):
     """A memory node cannot be reached (dead, unreachable, or timed out).
 
-    Copied from the reference so that ``serve/server.py`` keeps its
-    failover handling; only the multi-node pools (not ported yet) raise
-    it.
+    Raised by transports instead of hanging on a vanished node.  Callers
+    that hold replicas (``ShardedPool`` with ``replication >= 2``) catch
+    it, mark the shard dead, and retry on a surviving replica; everyone
+    else surfaces it.
     """
 
 
@@ -113,6 +115,32 @@ class MemoryPool(abc.ABC):
 
     # ------------------------------------------------------------ charging
 
+    def _transport(self, verb: str, n_bytes, descriptors, trips):
+        """Transport hook, called once per charge with the slice it
+        carried.  Default: bytes move over nothing (returns None).
+        Transports that model a wire return the slice's observed seconds,
+        which ``_charge`` records into the per-(verb, shard) latency
+        histogram (:meth:`hist`).  Each argument may be a scalar (one
+        destination) or a per-destination sequence (a sharded fan-out);
+        see ``SimulatedRDMAPool``."""
+        return None
+
+    @property
+    def hist(self):
+        """Lazy per-(verb, shard) latency histogram view.  ``shard_id``
+        (set by ``ShardedPool`` on its children; defaults to 0) keys the
+        shard dimension."""
+        h = getattr(self, "_hist", None)
+        if h is None:
+            from repro_torch.obs.hist import VerbShardHist
+            h = self._hist = VerbShardHist()
+        return h
+
+    def _observe(self, verb: str, seconds: float) -> None:
+        """Record one observed-latency sample for ``verb`` on this pool's
+        shard into :meth:`hist`."""
+        self.hist.record(verb, getattr(self, "shard_id", 0), seconds)
+
     def _charge(self, verb: str, ledger: Optional[NetLedger],
                 n_bytes: float, descriptors: int) -> None:
         """THE charge rule: ledger + pool running totals + the
@@ -124,6 +152,9 @@ class MemoryPool(abc.ABC):
         self.totals["round_trips"] += trips
         self.totals["descriptors"] += descriptors
         self.totals["bytes"] += n_bytes
+        dt = self._transport(verb, n_bytes, descriptors, trips)
+        if dt is not None:
+            self._observe(verb, float(dt))
         if TRACER.enabled:
             TRACER.event("pool." + verb, tier="pool", kind=self.kind,
                          bytes=float(n_bytes), descs=int(descriptors),
@@ -138,6 +169,9 @@ class MemoryPool(abc.ABC):
         self.totals["round_trips"] += 1
         self.totals["descriptors"] += 1
         self.totals["bytes"] += n_bytes
+        dt = self._transport(verb, n_bytes, 1, 1)
+        if dt is not None:
+            self._observe(verb, float(dt))
         if TRACER.enabled:
             TRACER.event("pool." + verb, tier="pool", kind=self.kind,
                          bytes=float(n_bytes), descs=1, trips=1)
@@ -213,8 +247,12 @@ class MemoryPool(abc.ABC):
 
     def snapshot(self) -> dict:
         """Verb counts + charged totals (+ transport-specific extras)."""
-        return {"kind": self.kind, "verbs": dict(self.verbs),
-                "totals": dict(self.totals)}
+        out = {"kind": self.kind, "verbs": dict(self.verbs),
+               "totals": dict(self.totals)}
+        h = getattr(self, "_hist", None)
+        if h is not None and len(h):
+            out["hist"] = h.to_dict()
+        return out
 
 
 def _fresh_totals() -> dict:

@@ -5,7 +5,11 @@ committed ``benchmarks/baselines/BENCH_quant.json`` exactly (MB, MB saved,
 round trips, tier slots, recall), and ``benchmarks/torch_throughput.py``
 the counted rows (round trips, cache hits, fetches, bytes, modelled
 network time) of the JAX ``benchmarks/throughput.py`` at the same tiny
-size.  Only counted numbers are compared: walls and times are the CPU's.
+size.  ``benchmarks/torch_pool.py --smoke`` must give every field of
+``BENCH_pool.json``'s ``rows``, ``shard_rows`` and ``chaos_latency`` but
+the wall clock (all counted or on the modeled clock), and
+``benchmarks/torch_serving.py --smoke`` its ``counted`` table.  Only
+counted numbers are compared: walls and times are the CPU's.
 """
 import json
 import sys
@@ -30,6 +34,18 @@ def benchmarks():
     finally:
         sys.path.remove(str(ROOT))
     return torch_quant, torch_throughput
+
+
+def _baseline(name: str) -> dict:
+    return json.loads((ROOT / "benchmarks" / "baselines" / name).read_text())
+
+
+def _import_bench(name: str):
+    sys.path.insert(0, str(ROOT))
+    try:
+        return __import__(f"benchmarks.{name}", fromlist=[name])
+    finally:
+        sys.path.remove(str(ROOT))
 
 
 def test_torch_quant_smoke_reproduces_the_baseline(benchmarks, tmp_path):
@@ -110,3 +126,48 @@ def test_torch_throughput_serves_a_prebuilt_index(benchmarks):
     with pytest.raises(ValueError, match="partitions"):
         torch_throughput.run(index, preset=dict(preset, n_rep=4), ds=ds,
                              device="cpu")
+
+
+def test_torch_pool_smoke_reproduces_the_baseline(tmp_path):
+    """Every field of the fabric sweep, the shard x placement sweep and
+    the straggler chaos row but ``wall_s`` equals the committed
+    baseline's: counted verbs, the modeled clock, placement, migrations
+    and the per-shard staged bytes.  The tables that need PoolServer
+    processes are named as not ported, not written empty."""
+    torch_pool = _import_bench("torch_pool")
+    out = tmp_path / "BENCH_torch_pool.json"
+    blob = torch_pool.run(smoke=True, out=str(out), device="cpu")
+    assert json.loads(out.read_text()) == blob
+    base = _baseline("BENCH_pool.json")
+    assert (blob["n"], blob["n_rep"], blob["n_batches"]) == (
+        base["n"], base["n_rep"], base["n_batches"])
+    for table in ("rows", "shard_rows"):
+        assert len(blob[table]) == len(base[table]), table
+        for got, want in zip(blob[table], base[table]):
+            assert set(got) == set(want), table
+            for key in set(want) - {"wall_s"}:
+                assert got[key] == want[key], (table, key)
+    assert blob["chaos_latency"] == base["chaos_latency"]
+    assert set(blob["not_ported"]) == {"transport_rows", "chaos"}
+    assert all("item 7" in why for why in blob["not_ported"].values())
+    assert "transport_rows" not in blob and "chaos" not in blob
+
+
+def test_torch_serving_smoke_reproduces_the_counted_table(tmp_path):
+    """The counted serial-vs-batched table equals ``BENCH_serving.json``'s
+    (trips, descriptors and KB a query, the mean fused batch); the
+    wall-clock rows exist and are not compared.  ``--trace`` writes a
+    trace the port's report CLI reads."""
+    torch_serving = _import_bench("torch_serving")
+    from repro_torch.obs import report
+    out = tmp_path / "BENCH_torch_serving.json"
+    trace = tmp_path / "serving_trace.json"
+    blob = torch_serving.run(smoke=True, out=str(out), device="cpu",
+                             trace_out=str(trace))
+    base = _baseline("BENCH_serving.json")
+    assert blob["counted"] == base["counted"]
+    for key in ("n", "seed", "clients", "per_client", "waves"):
+        assert blob[key] == base[key], key
+    assert [(r["clients"], r["impl"]) for r in blob["rows"]] == [
+        (r["clients"], r["impl"]) for r in base["rows"]]
+    assert report.main([str(trace)]) == 0

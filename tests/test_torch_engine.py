@@ -225,11 +225,14 @@ def test_cuda_without_a_card_raises():
 
 
 def test_paths_outside_the_slice_raise(built_engine, sift_small):
-    """The multi-node transports are not ported yet (insert and the pool
-    write verbs are: ``tests/test_torch_insert.py``)."""
-    for pool in ("sim_rdma", "sharded", "remote"):
-        with pytest.raises(NotImplementedError):
-            DHNSWEngine(EngineConfig(pool=pool, **BASE), device="cpu")
+    """The remote transport is not ported yet, alone or as a shard child
+    (the simulated-RDMA and sharded pools are:
+    ``tests/test_torch_pool.py``)."""
+    for kw in (dict(pool="remote"),
+               dict(pool="sharded", shard_transport="remote",
+                    endpoints=("localhost:1", "localhost:2"))):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            DHNSWEngine(EngineConfig(**kw, **BASE), device="cpu")
 
 
 # ------------------------------------------------------------ chip_smoke
@@ -333,6 +336,41 @@ def test_chip_smoke_insert_and_load_phases_on_cpu(chip_smoke):
     planned = cs.gather_launches(([], 0), {}, (), rec + rec2)
     assert planned == rec + rec2
     gather = cs._gather_record({**bufs, **bufs2}, planned, cpu, timed=False)
+    assert gather["bound_ms"] > 0 and gather["max_abs_err"] == 0.0
+
+
+def test_chip_smoke_pool_phases_on_cpu(chip_smoke, capsys):
+    """Phases 12 (the multi-node pools) and 13 (the serving benchmark) on
+    the CPU, at ``benchmarks/torch_pool.py``'s smoke geometry (1500 rows,
+    12 partitions, 2 shards, 12 zipf batches of 32): every check of theirs
+    runs, the shard rows equal the smoke baseline's, and the gather calls
+    they record become phase 4 launches on named buffers."""
+    cs = chip_smoke
+    cpu = torch.device("cpu")
+    ds, meta, store, qstore = cs.phase_index(1500, 64, 12)
+    vec0 = store.vec_buf.copy()
+    pools = cs.PathLog(cpu)
+    cs.phase_sim_rdma(ds, meta, store, qstore, cpu, k=10, doorbell=16,
+                      log_=pools)
+    cs.phase_sharded(ds, meta, store, qstore, cpu, k=10, doorbell=16,
+                     n_shards=2, n_batches=12, per_batch=32,
+                     migrate_every=32, log_=pools)
+    cs.phase_failover(ds, meta, store, cpu, k=10, doorbell=16, log_=pools)
+    assert np.array_equal(store.vec_buf, vec0)     # inserts on copies
+    out = capsys.readouterr().out
+    assert "sim 26.628 us/q" in out and "sim 13.513 us/q" in out
+    assert "staged MB [1.225, 1.225]" in out and "[2.45, 1.225]" in out
+    n12 = len(pools.calls)
+    assert n12 > 0
+    cs.phase_pool_bench(cpu, pools)
+    n12d = len(pools.calls)
+    cs.phase_serving(cpu, "cpu", pools)
+    # both benchmarks read their spans through the gather's wrapper
+    assert n12 < n12d < len(pools.calls)
+    assert all(n == 0 for n in pools.launches.values())
+    bufs = {}
+    rec = cs.recorded_launches(pools.calls, bufs, "pool.")
+    gather = cs._gather_record(bufs, rec, cpu, timed=False)
     assert gather["bound_ms"] > 0 and gather["max_abs_err"] == 0.0
 
 

@@ -158,7 +158,10 @@ COPIES = ([f"configs/{p.name}" for p in
            sorted((ROOT / "src/repro/configs").glob("*.py"))]
           + ["obs/hist.py", "obs/slo.py", "obs/metrics.py",
              "serve/batcher.py", "serve/server.py", "ingest/loader.py",
-             "ingest/compactor.py"])
+             "ingest/compactor.py", "obs/report.py", "pool/placement.py",
+             "net/wire.py"]
+          + [f"rdma/{p.name}" for p in
+             sorted((ROOT / "src/repro/rdma").glob("*.py"))])
 
 
 @pytest.mark.parametrize("rel", COPIES)
