@@ -19,19 +19,28 @@ count x placement, and straggler chaos.
   around it, the tail sampler keeps the slow batches, the SLO burn spikes
   and recovers, and every batch stays bit-identical to ``LocalPool``.
 
-The reference's ``transport_rows`` and ``chaos`` tables drive forked
-``PoolServer`` processes; they wait for the port of ``net/`` (ROADMAP
-"Modules to port" item 7), and the blob names them under ``not_ported``
-instead of carrying empty rows.
+* ``transport_rows`` (``--transport`` runs only these) — the same
+  workload through ``LocalPool``, ``SimulatedRDMAPool`` and a
+  ``RemotePool`` over each bearer: loopback (an in-process
+  ``HostRegion``) and tcp (one forked ``python -m repro_torch.net.server``
+  process).  Beside the ledger's modeled bytes each remote row reports the
+  measured wire payload and frames, and asserts span parity (measured ==
+  modeled).
+* ``chaos`` (``--chaos`` runs only this) — the failover gate:
+  ``replication=2`` over three forked servers, one killed with SIGKILL
+  mid-run; no error reaches the caller, every batch stays bit-identical to
+  ``LocalPool``, and the failover counters and per-batch wall percentiles
+  are reported.
 
     PYTHONPATH=src python benchmarks/torch_pool.py --smoke [--device cpu]
 
 Writes ``BENCH_torch_pool.json``.  Every gated field of ``--smoke``
-(counted verbs and the modeled clock) equals
-``benchmarks/baselines/BENCH_pool.json``'s.  Runs on the card unless
-``--device cpu``. Every engine reads its spans through the
-port's doorbell gather kernel (``use_gather_kernel``; on CPU tensors its
-plain version).
+(counted verbs, the modeled clock, measured wire bytes and frames, the
+failover counters) equals ``benchmarks/baselines/BENCH_pool.json``'s.
+Runs on the card unless ``--device cpu``.  Every in-process engine reads
+its spans through the port's doorbell gather kernel
+(``use_gather_kernel``; on CPU tensors its plain version); a remote
+engine's spans arrive over the wire and are uploaded to the device.
 """
 from __future__ import annotations
 
@@ -46,13 +55,6 @@ from repro_torch import DHNSWEngine, EngineConfig
 from repro_torch.core.cost_model import RDMA_100G, Fabric
 from repro_torch.data.synthetic import sift_like
 from repro_torch.pool.placement import FrequencyAwarePlacement
-
-NOT_PORTED = {
-    "transport_rows": "needs PoolServer processes: ROADMAP 'Modules to "
-                      "port' item 7",
-    "chaos": "kills a PoolServer process: ROADMAP 'Modules to port' item 7",
-}
-
 
 def fabric_grid(smoke: bool) -> list[Fabric]:
     base = RDMA_100G
@@ -212,6 +214,155 @@ def run_shards(*, smoke: bool = False, device="cuda") -> list[dict]:
     return rows
 
 
+def run_transport_cell(data, queries, *, transport: str, n_rep: int,
+                       n_batches: int, endpoint=None, bearer: str = "tcp",
+                       device="cuda") -> dict:
+    """One workload through one transport; modeled ledger numbers next
+    to (for remote) the measured wire traffic.  ``bearer`` picks the
+    remote QP bearer: ``tcp`` frames WRs to a forked ``PoolServer``,
+    ``loopback`` runs the identical verbs path against an in-process
+    ``HostRegion`` — same frames, no sockets."""
+    cfg = EngineConfig(mode="full", search_mode="scan", b=4, ef=48,
+                       n_rep=n_rep, cache_frac=0.25, doorbell=16,
+                       fabric=RDMA_100G, seed=0, quant="none",
+                       pool=transport, bearer=bearer,
+                       endpoints=(endpoint,) if endpoint else None,
+                       use_gather_kernel=True)
+    eng = DHNSWEngine(cfg, device=device).build(data)
+    per = max(len(queries) // n_batches, 1)
+    nq = 0
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        qb = queries[i * per:(i + 1) * per]
+        eng.search(qb, k=10)
+        nq += len(qb)
+    wall = time.perf_counter() - t0
+    snap = eng.pool.snapshot()
+    tot = snap["totals"]
+    row = {"transport": transport,
+           "round_trips_per_q": round(tot["round_trips"] / nq, 3),
+           "descriptors_per_q": round(tot["descriptors"] / nq, 3),
+           "model_kb_per_q": round(tot["bytes"] / nq / 1e3, 2),
+           "wall_s": round(wall, 2)}
+    if transport == "remote":
+        wire = snap["wire"]
+        wvm = snap["wire_vs_model"]["read_spans"]
+        # the ledger's modeled span bytes must equal what actually
+        # crossed the bearer (socket payload for tcp, HostRegion frames
+        # for loopback)
+        assert wvm["measured"] == wvm["modeled"], wvm
+        row.update({
+            "bearer": snap["bearer"],
+            "endpoint": snap.get("endpoint"),
+            "wire_kb_per_q": round(
+                wire["payload_by_verb"]["read_spans"] / nq / 1e3, 2),
+            "wire_frames": wire["frames_tx"],
+            "wire_frame_overhead_kb": round(
+                (wire["bytes_rx"] + wire["bytes_tx"]
+                 - sum(wire["payload_by_verb"].values())) / 1e3, 2),
+            "inflight_peak": wire["inflight_peak"],
+            "span_wire_vs_model": wvm["ratio"]})
+    elif transport == "sim_rdma":
+        row["sim_us_per_q"] = round(snap["sim_total_s"] / nq * 1e6, 3)
+        row["fabric"] = snap["fabric"]
+    return row
+
+
+def run_transports(*, smoke: bool = False, device="cuda") -> list[dict]:
+    """LocalPool vs SimulatedRDMAPool vs a RemotePool over each QP
+    bearer — loopback (in-process HostRegion) and tcp (one forked
+    server process) — on the same workload."""
+    from repro_torch.net import spawn_pool_servers
+    n, n_rep, n_batches = (1500, 12, 2) if smoke else (20_000, 64, 4)
+    ds = sift_like(n=n, n_queries=128 if smoke else 256, seed=0)
+    cells = (("local", "tcp"), ("sim_rdma", "tcp"),
+             ("remote", "loopback"), ("remote", "tcp"))
+    rows = []
+    print(f"{'transport':>15s} {'rt/q':>7s} {'model KB/q':>11s} "
+          f"{'wire KB/q':>10s} {'wall s':>7s}")
+    with spawn_pool_servers(1) as endpoints:
+        for transport, bearer in cells:
+            remote_tcp = transport == "remote" and bearer == "tcp"
+            row = run_transport_cell(
+                ds.data, ds.queries, transport=transport, n_rep=n_rep,
+                n_batches=n_batches, bearer=bearer,
+                endpoint=endpoints[0] if remote_tcp else None,
+                device=device)
+            rows.append(row)
+            label = (f"{transport}/{bearer}" if transport == "remote"
+                     else transport)
+            print(f"{label:>15s} {row['round_trips_per_q']:7.3f} "
+                  f"{row['model_kb_per_q']:11.2f} "
+                  f"{row.get('wire_kb_per_q', float('nan')):10.2f} "
+                  f"{row['wall_s']:7.2f}", flush=True)
+    return rows
+
+
+def run_chaos(*, smoke: bool = False, device="cuda") -> dict:
+    """Kill -9 one of three replicated pool servers mid-run.
+
+    The same batch stream is driven through a ``replication=2`` remote
+    pool and a ``LocalPool`` reference in lockstep (same call index, so
+    compute-side caches warm identically).  Halfway through, one
+    ``PoolServer`` gets SIGKILL.  Asserts the failover contract — no
+    error surfaces, results stay bit-identical — and reports per-batch
+    latency percentiles plus the failover counters.
+    """
+    from repro_torch.net import spawn_pool_servers
+    n, n_rep, n_batches = (1500, 12, 8) if smoke else (8_000, 32, 16)
+    ds = sift_like(n=n, n_queries=64, seed=0)
+    kw = dict(mode="full", search_mode="scan", b=3, ef=32, n_rep=n_rep,
+              cache_frac=0.25, doorbell=16, fabric=RDMA_100G, seed=0,
+              use_gather_kernel=True)
+    ref = DHNSWEngine(EngineConfig(pool="local", **kw),
+                      device=device).build(ds.data)
+    per = max(len(ds.queries) // n_batches, 1)
+    kill_at = n_batches // 2
+    lat, mismatches = [], 0
+    # 3 servers so R=2 does NOT fully replicate: the kill strips one
+    # replica from ~2/3 of the groups and forces real re-replication
+    with spawn_pool_servers(3, with_procs=True) as (eps, procs):
+        eng = DHNSWEngine(EngineConfig(pool="remote", endpoints=tuple(eps),
+                                       replication=2, **kw),
+                          device=device).build(ds.data)
+        for i in range(n_batches):
+            qb = ds.queries[i * per:(i + 1) * per]
+            if i == kill_at:
+                procs[0].kill()
+                procs[0].wait(timeout=10)
+            t0 = time.perf_counter()
+            d, g, _ = eng.search(qb, k=10)
+            lat.append(time.perf_counter() - t0)
+            dr, gr, _ = ref.search(qb, k=10)
+            if not (np.array_equal(d, dr) and np.array_equal(g, gr)):
+                mismatches += 1
+        snap = eng.pool.snapshot()
+    assert mismatches == 0, \
+        f"{mismatches} post-kill batches diverged from LocalPool"
+    fo = snap["failover"]
+    assert fo["deaths"] == 1 and fo["lost_groups"] == 0, fo
+    arr = np.asarray(lat, np.float64) * 1e3
+    # bounded p99: every batch completed (no hang on the dead socket);
+    # the kill batch pays dead-socket detection + re-replication once
+    assert np.all(np.isfinite(arr)) and float(arr.max()) < 60_000.0, arr
+    row = {"replication": 2, "n_batches": n_batches,
+           "kill_batch": kill_at, "deaths": fo["deaths"],
+           "read_retries": fo["read_retries"],
+           "rereplicated_groups": fo["rereplicated_groups"],
+           "rereplicate_mb": round(fo["rereplicate_bytes"] / 1e6, 3),
+           "lost_groups": fo["lost_groups"],
+           "bit_identical_to_local": True,
+           "p50_ms": round(float(np.percentile(arr, 50)), 3),
+           "p99_ms": round(float(np.percentile(arr, 99)), 3),
+           "kill_batch_ms": round(float(arr[kill_at]), 3)}
+    print(f"chaos: kill -9 at batch {kill_at}/{n_batches}, "
+          f"rereplicated {row['rereplicated_groups']} groups "
+          f"({row['rereplicate_mb']} MB), p50 {row['p50_ms']} ms, "
+          f"p99 {row['p99_ms']} ms, kill batch {row['kill_batch_ms']} ms, "
+          f"bit-identical to local", flush=True)
+    return row
+
+
 def run_chaos_latency(*, smoke: bool = False, device="cuda") -> dict:
     """Seeded WR-latency chaos on one shard of a replicated sharded pool.
 
@@ -365,8 +516,20 @@ def _load_blob(out: str, fallback: dict) -> dict:
         return fallback
 
 
+def _one_table(out: str, smoke: bool, meta: dict, table: str, fn) -> dict:
+    """A partial sweep: refresh ``table`` in ``out``, keep the rest."""
+    blob = _load_blob(out, {"bench": "pool", "smoke": smoke, "rows": []})
+    blob.update(meta)
+    blob[table] = fn()
+    with open(out, "w") as f:
+        json.dump(blob, f, indent=2)
+    print(f"wrote {out} ({table})")
+    return blob
+
+
 def run(*, smoke: bool = False, out: str = "BENCH_torch_pool.json",
         device="cuda", shards_only: bool = False,
+        transport_only: bool = False, chaos_only: bool = False,
         chaos_latency_only: bool = False) -> dict:
     if smoke:
         n, n_rep, n_batches = 1500, 12, 2
@@ -378,19 +541,17 @@ def run(*, smoke: bool = False, out: str = "BENCH_torch_pool.json",
         quants = ("none", "int8")
     dev = torch.device(device)
     meta = {"device": (torch.cuda.get_device_name(dev)
-                       if dev.type == "cuda" else "cpu"),
-            "not_ported": dict(NOT_PORTED)}
-    for table, why in NOT_PORTED.items():
-        print(f"{table}: not run ({why})")
+                       if dev.type == "cuda" else "cpu")}
+    if transport_only:
+        return _one_table(out, smoke, meta, "transport_rows",
+                          lambda: run_transports(smoke=smoke, device=device))
+    if chaos_only:
+        return _one_table(out, smoke, meta, "chaos",
+                          lambda: run_chaos(smoke=smoke, device=device))
     if chaos_latency_only:
-        blob = _load_blob(out, {"bench": "pool", "smoke": smoke,
-                                "rows": []})
-        blob.update(meta)
-        blob["chaos_latency"] = run_chaos_latency(smoke=smoke, device=device)
-        with open(out, "w") as f:
-            json.dump(blob, f, indent=2)
-        print(f"wrote {out} (chaos-latency row)")
-        return blob
+        return _one_table(out, smoke, meta, "chaos_latency",
+                          lambda: run_chaos_latency(smoke=smoke,
+                                                    device=device))
     rows = []
     if not shards_only:
         ds = sift_like(n=n, n_queries=256, seed=0)
@@ -417,13 +578,14 @@ def run(*, smoke: bool = False, out: str = "BENCH_torch_pool.json",
     else:
         blob = {"bench": "pool", "smoke": smoke, "n": n, "n_rep": n_rep,
                 "n_batches": n_batches, **meta, "rows": rows,
-                "shard_rows": shard_rows,
-                "chaos_latency": run_chaos_latency(smoke=smoke,
-                                                   device=device)}
+                "shard_rows": shard_rows}
+        blob["transport_rows"] = run_transports(smoke=smoke, device=device)
+        blob["chaos"] = run_chaos(smoke=smoke, device=device)
+        blob["chaos_latency"] = run_chaos_latency(smoke=smoke, device=device)
     with open(out, "w") as f:
         json.dump(blob, f, indent=2)
     print(f"wrote {out} ({len(blob['rows'])} + {len(shard_rows)} shard "
-          f"rows)")
+          f"+ {len(blob.get('transport_rows', []))} transport rows)")
     return blob
 
 
@@ -433,6 +595,13 @@ def main():
                     help="the reference's tiny CI config")
     ap.add_argument("--shards", action="store_true",
                     help="run only the shard count x placement sweep")
+    ap.add_argument("--transport", action="store_true",
+                    help="run only the transport comparison (local vs "
+                         "sim_rdma vs remote over loopback and tcp; spawns "
+                         "a server)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run only the failover chaos gate (replication=2 "
+                         "over three servers, kill -9 one mid-run)")
     ap.add_argument("--chaos-latency", action="store_true",
                     help="run only the straggler chaos gate (seeded WR "
                          "latency injection on one shard)")
@@ -441,7 +610,8 @@ def main():
     ap.add_argument("--out", default="BENCH_torch_pool.json")
     args = ap.parse_args()
     run(smoke=args.smoke, out=args.out, device=args.device,
-        shards_only=args.shards, chaos_latency_only=args.chaos_latency)
+        shards_only=args.shards, transport_only=args.transport,
+        chaos_only=args.chaos, chaos_latency_only=args.chaos_latency)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ Phases, each printing its own lines:
 4. kernels against their plain torch versions on the card at the shapes
    the paths give them (for the gather, the ids of every launch of
    phases 5, 8 and 9, planned as the engine plans them, and of phases
-   10-13, recorded there; for
+   10-14, recorded there; for
    ``distance_topk``, the throughput benchmark's B=128 x N=4096 and the
    flat f32 twin of ``quant_topk``'s shape; for ``decode_attention``,
    phase 9's first decode call and a long-context shape), with times
@@ -76,14 +76,29 @@ Phases, each printing its own lines:
     fanned-out flat view); (c) 3 shards at ``replication=2``: a child
     killed mid-stream, inserts, ``add_shard`` and ``remove_shard``, each
     step bit-identical to ``LocalPool``; (d) ``benchmarks/torch_pool.py
-    --smoke``, equal to ``BENCH_pool.json`` but the wall clock;
+    --smoke`` but its two tables that fork servers, equal to
+    ``BENCH_pool.json`` but the wall clock;
 13. ``benchmarks/torch_serving.py --smoke``: the counted table equal to
     ``BENCH_serving.json``'s, the wall-clock rows printed (smoke size).
-    The engines of 12d and 13 gather through the kernel too.
+    The engines of 12d and 13 gather through the kernel too;
+14. the remote memory pool, the memory nodes host processes on the
+    card's machine (``python -m repro_torch.net.server``): (a) one node
+    over the loopback bearer and over tcp in phase 5's exact scan and
+    phase 6's int8 flat configurations, bit-identical to ``LocalPool``
+    with equal counted stats, measured wire bytes equal to the model,
+    the flat view over the wire equal to phase 6's and stage 1 through
+    ``quant_topk``; (b) three nodes at ``replication=2``, 4 batches of
+    500, node 0 killed with SIGKILL after two: bit-identical, one death,
+    no lost group, 16 inserts; (c) a durable node (``--data-dir``) at
+    ``benchmarks/ingest.py run_recovery``'s 8000 rows takes 64 appends,
+    is killed, restarts and is re-attached from its WAL, then serves a
+    bit-identical search; (d) ``torch_pool.py --smoke --transport
+    --chaos`` and ``torch_ingest.py --smoke``, equal to the baselines but
+    the clock.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
 planned from the engine's embedding of the prompts, and the launches of
-the searches of phases 10-13 (recorded there, on the buffers they
+the searches of phases 10-14 (recorded there, on the buffers they
 read); ``decode_attention`` is held at the inputs of phase 9's first
 decode call (captured there) and at a long-context shape (B=16,
 S=32768); ``quant_topk`` is also held at the flat shape at k = 256 and
@@ -123,6 +138,7 @@ import copy
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -138,8 +154,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmarks import (torch_common, torch_pool,  # noqa: E402
-                        torch_quant, torch_serving, torch_throughput)
+from benchmarks import (torch_common, torch_ingest,  # noqa: E402
+                        torch_pool, torch_quant, torch_serving,
+                        torch_throughput)
 from repro_torch import DHNSWEngine, EngineConfig  # noqa: E402
 from repro_torch.core import device_store as DS  # noqa: E402
 from repro_torch.core import layout as LA  # noqa: E402
@@ -162,7 +179,9 @@ from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
     dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
 from repro_torch.models import layers as LY  # noqa: E402
+from repro_torch.net import RemotePool, spawn_pool_servers  # noqa: E402
 from repro_torch.pool import LocalPool  # noqa: E402
+from repro_torch.pool.compute import ComputeClient  # noqa: E402
 from repro_torch.pool.protocol import (  # noqa: E402
     PoolUnavailableError, span_wire_bytes)
 from repro_torch.pool.sharded import ShardedPool  # noqa: E402
@@ -182,7 +201,12 @@ REDUCED = {"n": [1_000_000, 100_000], "n_rep": [500, 256],
            "decode_32k_batch": [128, 16],
            "decode_32k_why": "decode_attention's long-context check holds "
                              "one layer's K/V and the plain version's f32 "
-                             "copies of them on the card"}
+                             "copies of them on the card",
+           "durable_n": [100_000, 8000],
+           "durable_why": "a write-ahead log record is bounded at 64 MiB "
+                          "(ingest/wal.py MAX_BODY, as the reference's): "
+                          "the ATTACH record of the 100k region (285 MB) "
+                          "would be skipped on replay as a torn tail"}
 FULL = dict(n=100_000, n_queries=2000, n_rep=256, k=10, doorbell=16)
 SEED = 0
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-3
@@ -198,6 +222,12 @@ LOAD = dict(n=20_000, n_rep=64, n_chunks=8, n_queries=500, k=10)
 # phase 12b: benchmarks/torch_pool.py's full shard cell (run_shards) at 4
 # shards on phase 3's index
 SHARD = dict(n_shards=4, n_batches=16, per_batch=64, migrate_every=64)
+# phase 14b: benchmarks/pool.py run_chaos's protocol on phase 3's index:
+# 3 servers at replication=2, 4 batches, server 0 killed after batch 2
+CHAOS = dict(n_servers=3, n_batches=4, kill_after=2, n_insert=16)
+# phase 14c: benchmarks/ingest.py run_recovery's full geometry (8000 rows,
+# 64 appends), searched with 500 queries
+DURABLE = dict(n=8000, n_append=64, n_search=500)
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
 # they differ by at most one step of each element); in f32 at the gpu
@@ -478,7 +508,7 @@ def gather_launches(exact_gathers, pair_gathers, rag_gathers=(),
     then scan), then phase 8's counted run in each search mode
     (``pair_gathers``: mode -> the result of ``pair_path_gathers``), then
     phase 9's retrieval (``rag_path_gathers``' result), then the launches
-    phases 10-13 recorded (``recorded_launches``)."""
+    phases 10-14 recorded (``recorded_launches``)."""
     out = [(EXACT_BUFS, ids) for _ in ("graph", "scan")
            for ids in exact_gathers[0]]
     for batches in pair_gathers.values():
@@ -560,7 +590,7 @@ def _gather_record(bufs, launches, device, timed: bool,
             del src, dst
         if bad.item():
             raise AssertionError("gather_spans flagged an id out of range")
-    log(f"[4 kernels] gather_spans, every span read of phases 5 and 8-13 "
+    log(f"[4 kernels] gather_spans, every span read of phases 5 and 8-14 "
         f"({len(launches)} launches, "
         f"{sum(len(names) for names, _ in launches)} buffer reads): "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
@@ -1051,7 +1081,7 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
     the quant_topk call.  Top-k ids equal up to ties and distances within
     rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
     ``_decode_record``), when given.  ``extra_bufs`` names the buffers
-    of the launches phases 10-13 recorded.  Beside the path's calls,
+    of the launches phases 10-14 recorded.  Beside the path's calls,
     ``quant_topk`` is held at the flat shape at k = 256 and 1024 (the
     large-k route) and on group-2 codes of the same rows (the per-code
     scale path), and ``distance_topk`` at k = 256 (``wide_topk``).  Times
@@ -1643,7 +1673,7 @@ class CallLog:
 
 
 class PathLog:
-    """The launches and gather calls of a path's searches (phases 10-13):
+    """The launches and gather calls of a path's searches (phases 10-14):
     inside ``path()`` every launch count starts at 0 and is read at the
     end (into the dict it yields, and summed into ``launches``), and each
     ``gather_spans`` call is recorded (its buffers and ids) so phase 4
@@ -2140,8 +2170,9 @@ class FanoutTrips:
     charge, apart from the pool's own fan-out code.  Each charged call of
     ``read_spans``, ``post_span_reads`` or ``post_row_reads`` is split by
     destination: a span (or row group) goes to ``owner_of_pid`` as the
-    call starts, or, where that is a dead child, to the shard serving it
-    after the call (the failover retry, a part of its own).  Each part
+    call starts, or, where that shard is dead after the call (a stub
+    swapped in, or a memory node killed), to the shard serving it after
+    the call (the failover retry, a part of its own).  Each part
     is cut into doorbell chunks of ceil(descriptors / max_doorbell)
     trips, and the call charges the most of any part: the shards answer
     in parallel.  ``total`` stays None for a pool that is not sharded."""
@@ -2192,11 +2223,12 @@ class FanoutTrips:
             if ledger is None:
                 return real(*args, ledger=ledger, **kw)
             pids, descs = self._units(verb, args, kw)
-            dead = {s for s, c in enumerate(pool.children)
-                    if isinstance(c, _DeadChild)}
             before = (None if pids is None
                       else [owner(p) for p in pids])
             out = real(*args, ledger=ledger, **kw)
+            # a shard that served a span as the call started and is dead
+            # after it died in the call: its slice failed, charged nothing
+            dead = {s for s, up in enumerate(pool._alive) if not up}
             parts = {}
             for i, d in enumerate(descs):
                 key = 0 if before is None else before[i]
@@ -2522,8 +2554,10 @@ def phase_failover(ds, meta, store, device, *, k: int, doorbell: int,
         torch.cuda.empty_cache()
 
 
-def _bench_fields_equal(got: dict, want: dict, table: str) -> None:
-    """Every field of a benchmark table but the wall clock is equal."""
+def _bench_fields_equal(got: dict, want: dict, table: str,
+                        clock=("wall_s",)) -> None:
+    """Every field of a benchmark table but those read off the host's
+    clock (``clock``) is equal."""
     rows_g = got[table] if isinstance(got[table], list) else [got[table]]
     rows_w = want[table] if isinstance(want[table], list) else [want[table]]
     if len(rows_g) != len(rows_w):
@@ -2531,16 +2565,37 @@ def _bench_fields_equal(got: dict, want: dict, table: str) -> None:
                              f"{len(rows_w)}")
     for g, w in zip(rows_g, rows_w):
         diff = sorted(key for key in set(g) | set(w)
-                      if key != "wall_s" and g.get(key) != w.get(key))
+                      if key not in clock and g.get(key) != w.get(key))
         if diff:
             raise AssertionError(f"{table}: {diff} differ from the baseline")
 
 
+# fields of the benchmark tables read off the host's clock or naming a
+# server's port: printed, never compared
+CLOCK = ("wall_s", "endpoint", "p50_ms", "p99_ms", "kill_batch_ms",
+         "recover_wall_s")
+
+
+def _transport_line(tr) -> str:
+    return ", ".join(f"{r['transport']}"
+                     + (f"/{r['bearer']}" if "bearer" in r else "")
+                     + f" {r['round_trips_per_q']} trips/q "
+                       f"{r['descriptors_per_q']} descs/q "
+                       f"{r['model_kb_per_q']} KB/q"
+                     + (f" wire {r['wire_kb_per_q']} KB/q in "
+                        f"{r['wire_frames']} frames" if "bearer" in r
+                        else "")
+                     for r in tr)
+
+
 def phase_pool_bench(device, log_: PathLog) -> None:
     """Phase 12d: ``benchmarks/torch_pool.py --smoke`` on ``device``: every
-    field of ``rows``, ``shard_rows`` and ``chaos_latency`` but the wall
-    clock equals ``benchmarks/baselines/BENCH_pool.json``'s.  Its engines
-    gather through the CUDA kernel, one path in ``log_``."""
+    field of its five tables (``rows``, ``shard_rows``, ``transport_rows``,
+    ``chaos``, ``chaos_latency``) but those in ``CLOCK`` equals
+    ``benchmarks/baselines/BENCH_pool.json``'s.  ``transport_rows`` and
+    ``chaos`` fork ``python -m repro_torch.net.server`` memory nodes.  Its
+    in-process engines gather through the CUDA kernel, one path in
+    ``log_``."""
     base = json.loads((ROOT / "benchmarks" / "baselines"
                        / "BENCH_pool.json").read_text())
     t0 = time.perf_counter()
@@ -2548,20 +2603,28 @@ def phase_pool_bench(device, log_: PathLog) -> None:
         blob = torch_pool.run(smoke=True, out=f"{tmp}/BENCH_torch_pool.json",
                               device=device)
     wall = time.perf_counter() - t0
-    for table in ("rows", "shard_rows", "chaos_latency"):
-        _bench_fields_equal(blob, base, table)
+    for table in ("rows", "shard_rows", "transport_rows", "chaos",
+                  "chaos_latency"):
+        _bench_fields_equal(blob, base, table, CLOCK)
     sr = {r["placement"]: r for r in blob["shard_rows"]}
-    cl = blob["chaos_latency"]
+    cl, ch = blob["chaos_latency"], blob["chaos"]
     log(f"[12d torch_pool --smoke] {len(blob['rows'])} fabric rows, "
-        f"{len(blob['shard_rows'])} shard rows and the chaos_latency row "
-        f"equal to BENCH_pool.json but wall_s | shard_rows 2 shards: "
+        f"{len(blob['shard_rows'])} shard rows, "
+        f"{len(blob['transport_rows'])} transport rows, the chaos and "
+        f"chaos_latency rows equal to BENCH_pool.json but the clock | "
+        f"shard_rows 2 shards: "
         + ", ".join(f"{p} {r['round_trips_per_q']} trips/q {r['kb_per_q']} "
                     f"KB/q staged_mb_max {r['staged_mb_max']} sim "
                     f"{r['sim_us_per_q']} us/q" for p, r in sr.items())
-        + f" | chaos_latency flagged {cl['flagged_shard']} mismatches "
+        + f" | transport_rows {_transport_line(blob['transport_rows'])}"
+        f" | chaos replication {ch['replication']} batches "
+        f"{ch['n_batches']} kill {ch['kill_batch']} re-replicated "
+        f"{ch['rereplicate_mb']} MB bit-identical "
+        f"{ch['bit_identical_to_local']} (p50 {ch['p50_ms']} ms, p99 "
+        f"{ch['p99_ms']} ms)"
+        f" | chaos_latency flagged {cl['flagged_shard']} mismatches "
         f"{cl['mismatches']} p99_on {cl['p99_on_us']} us burn_peak "
-        f"{cl['burn_peak']} | not run: {sorted(blob['not_ported'])} | "
-        f"{wall:.1f} s | launches {launches}")
+        f"{cl['burn_peak']} | {wall:.1f} s | launches {launches}")
 
 
 def phase_serving(device, smi: str, log_: PathLog) -> None:
@@ -2590,6 +2653,338 @@ def phase_serving(device, smi: str, log_: PathLog) -> None:
             f", p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms ({smi}; smoke "
             f"size, not compared)")
     log(f"[13 serving] {wall:.1f} s | launches {launches}")
+
+
+# ------------------------------------------------------ remote memory pool
+
+class Wrapped:
+    """While active, replaces ``obj.name`` with a wrapper that counts its
+    calls and sums their host seconds (each ended by a sync on the card);
+    the real method still runs."""
+
+    def __init__(self, obj, name: str, device):
+        self.obj, self.name, self.device = obj, name, device
+        self.calls, self.seconds = 0, 0.0
+
+    def __enter__(self) -> "Wrapped":
+        real = getattr(self.obj, self.name)
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+            return out
+        setattr(self.obj, self.name, call)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        delattr(self.obj, self.name)
+
+
+def cuda_marks(pid) -> list:
+    """The device files a process that holds a CUDA context has open or
+    mapped (``/dev/nvidiactl``, ``/dev/nvidia<N>``, ``/dev/nvidia-uvm``),
+    as ``/proc`` shows them.  The driver library is no mark: ``import
+    torch`` maps ``libcuda.so`` before anything touches the card."""
+    marks = set()
+    for ln in Path(f"/proc/{pid}/maps").read_text().splitlines():
+        if ln.split()[-1].startswith("/dev/nvidia"):
+            marks.add(ln.split()[-1])
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            target = os.readlink(fd)
+        except OSError:           # closed while listed
+            continue
+        if target.startswith("/dev/nvidia"):
+            marks.add(target)
+    return sorted(marks)
+
+
+def no_cuda_context(pids, what: str) -> str:
+    """Holds that none of ``pids`` (memory-node processes) carries a CUDA
+    context's marks (``cuda_marks``).  On the card this process must
+    carry them, which shows that the check can see them at all."""
+    own = cuda_marks(os.getpid())
+    if torch.cuda.is_available() and torch.cuda.is_initialized() and not own:
+        raise AssertionError(f"{what}: this process holds a CUDA context "
+                             f"but /proc shows none of its marks")
+    bad = {pid: m for pid in pids if (m := cuda_marks(pid))}
+    if bad:
+        raise AssertionError(f"{what}: memory nodes carry CUDA marks {bad}")
+    return (f"no CUDA mark in /proc of the {len(pids)} memory nodes (this "
+            f"process: {', '.join(own) or 'none, no card'})")
+
+
+def _remote_equal(so, lo, what: str) -> None:
+    """A remote search against LocalPool's on the same batch: bit-identical
+    results and equal counted stats."""
+    _bit_equal(so, lo, what)
+    if not _counted_equal(so[2], lo[2]):
+        raise AssertionError(f"{what}: counted stats {_counted(so[2])} vs "
+                             f"LocalPool's {_counted(lo[2])}")
+
+
+def _wire_line(wire, nq: int, before=None) -> str:
+    """The wire's bytes (both ways) and request frames, since ``before``
+    (a copy of the counters) when given."""
+    b = before or {"bytes_rx": 0, "bytes_tx": 0, "frames_tx": 0}
+    mb = (wire["bytes_rx"] + wire["bytes_tx"] - b["bytes_rx"]
+          - b["bytes_tx"]) / 1e6
+    return (f"wire {mb:.3f} MB in {wire['frames_tx'] - b['frames_tx']} "
+            f"frames ({mb * 1e3 / nq:.2f} KB a query)")
+
+
+def phase_remote(ds, meta, store, qstore, device, *, k: int, doorbell: int,
+                 log_: PathLog) -> None:
+    """Phase 14a: one memory node.  ``pool="remote"`` over the loopback
+    bearer (an in-process ``HostRegion``) and over tcp to one spawned
+    ``python -m repro_torch.net.server``, in phase 5's exact scan and phase
+    6's int8 flat configurations, one batch each, beside LocalPool: gids
+    and distances bit-identical, counted stats equal, every data verb's
+    measured payload equal to the modeled bytes; on the int8 flat engine
+    the flat view fetched over the wire equals LocalPool's and stage 1
+    runs through ``quant_topk``.  Prints the batch and flat-sync walls,
+    the wire MB and frames, and the host-to-device uploads a batch."""
+    B = len(ds.queries)
+    exact = exact_config(meta.n_partitions, doorbell, "scan")
+    flat = flat_config(meta.n_partitions, doorbell)
+    with spawn_pool_servers(1, with_procs=True) as (eps, procs):
+        for label, cfg, st0 in (("exact scan", exact, store),
+                                ("int8 flat", flat, qstore)):
+            local = DHNSWEngine(cfg, device=device).adopt_built(
+                meta, dataclasses.replace(st0), ds.data)
+            with Wrapped(local.client, "_sync_flat", device) as lsync:
+                lo = _search(local, ds.queries, k, device)
+            for bearer in ("loopback", "tcp"):
+                what = f"remote/{bearer} {label}"
+                t0 = time.perf_counter()
+                eng = DHNSWEngine(dataclasses.replace(
+                    cfg, pool="remote", bearer=bearer,
+                    endpoints=(eps[0],) if bearer == "tcp" else None),
+                    device=device).adopt_built(
+                    meta, dataclasses.replace(st0), ds.data)
+                attach_s = time.perf_counter() - t0
+                w0 = dict(eng.pool.wire)
+                with Wrapped(eng.client, "_sync_flat", device) as sync, \
+                        Wrapped(eng.pool, "_up", device) as ups:
+                    so = log_.search(eng, ds.queries, k)
+                _remote_equal(so, lo, what)
+                _check_output(so[0], so[1], B, k, ds.data.shape[0], what)
+                snap = eng.pool.snapshot()
+                wvm = snap["wire_vs_model"]
+                off = {v: r for v, r in wvm.items() if v.startswith("read")
+                       and r["measured"] != r["modeled"]}
+                if not wvm or off:
+                    raise AssertionError(f"{what}: wire vs model {wvm}")
+                line = ""
+                if label == "int8 flat":
+                    cl, cr = local.client, eng.client
+                    for a in ("_flat_codes", "_flat_scales", "_flat_cols"):
+                        if cl._flat_n != cr._flat_n or not torch.equal(
+                                getattr(cl, a)[:cl._flat_n],
+                                getattr(cr, a)[:cr._flat_n]):
+                            raise AssertionError(f"{what}: {a} differs from "
+                                                 f"LocalPool's flat view")
+                    want_impl = "cuda" if device.type == "cuda" else "ref"
+                    if so[2]["stage1_impl"] != want_impl or (
+                            device.type == "cuda"
+                            and so[4]["quant_topk"] == 0):
+                        raise AssertionError(f"{what}: stage 1 "
+                                             f"{so[2]['stage1_impl']}, "
+                                             f"launches {so[4]}")
+                    line = (f" | flat view ({cr._flat_n} rows) equal to "
+                            f"LocalPool's, stage 1 {so[2]['stage1_impl']}, "
+                            f"flat sync {sync.seconds:.4f} s (LocalPool "
+                            f"{lsync.seconds:.4f} s)")
+                log(f"[14a {what}] bit-identical to LocalPool, counted net "
+                    f"equal ({_counted(so[2])}), measured = modeled bytes "
+                    f"for {sorted(v for v in wvm if v.startswith('read'))}"
+                    f"{line} | batch wall {so[3]:.4f} s (LocalPool "
+                    f"{lo[3]:.4f} s) | {_wire_line(snap['wire'], B, w0)} "
+                    f"| "
+                    f"uploads a batch {ups.calls} | attach {attach_s:.2f} s "
+                    f"| launches {so[4]}")
+                del eng
+            del local
+        log(f"[14a] {no_cuda_context([p.pid for p in procs], '14a')}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_remote_chaos(ds, meta, store, device, *, k: int, doorbell: int,
+                       n_servers: int, n_batches: int, kill_after: int,
+                       n_insert: int, log_: PathLog) -> None:
+    """Phase 14b: ``benchmarks/pool.py run_chaos``'s protocol on phase 3's
+    index: ``n_servers`` spawned memory nodes at ``replication=2`` in phase
+    5's exact scan configuration, beside a LocalPool engine in lockstep,
+    ``n_batches`` batches; after ``kill_after`` of them server 0 gets
+    SIGKILL.  Every batch bit-identical, its counted stats as
+    ``_fanout_counted`` holds them (the batch that meets the death too:
+    the failed slice charged nothing, its retry is a part of its own);
+    one death, no lost group, at least one read retry; then ``n_insert``
+    inserts through both (equal gids) and a bit-identical search."""
+    cfg = exact_config(meta.n_partitions, doorbell, "scan")
+    local = DHNSWEngine(cfg, device=device).adopt_built(
+        meta, copy.deepcopy(store), ds.data)
+    per = len(ds.queries) // n_batches
+    qs = [ds.queries[i * per:(i + 1) * per] for i in range(n_batches)]
+    walls = []
+
+    def both(q, what):
+        lo = _search(local, q, k, device)
+        so = log_.search(eng, q, k)
+        _bit_equal(so, lo, what)
+        _fanout_counted(so[2], lo[2], log_.trips, what)
+        walls.append((round(so[3], 4), round(lo[3], 4)))
+        return so
+    with spawn_pool_servers(n_servers, with_procs=True) as (eps, procs):
+        eng = DHNSWEngine(dataclasses.replace(
+            cfg, pool="remote", endpoints=tuple(eps), replication=2),
+            device=device).adopt_built(meta, copy.deepcopy(store), ds.data)
+        for i, q in enumerate(qs):
+            if i == kill_after:
+                procs[0].kill()
+                procs[0].wait(timeout=10)
+            both(q, f"14b batch {i}")
+        fo = dict(eng.pool.failover)
+        if (fo["deaths"], fo["lost_groups"]) != (1, 0) or (
+                fo["read_retries"] < 1):
+            raise AssertionError(f"14b failover {fo}")
+        new = np.ascontiguousarray(ds.queries[:n_insert])
+        g_local, g_remote = local.insert(new), eng.insert(new)
+        if not np.array_equal(g_local, g_remote):
+            raise AssertionError(f"14b insert: gids {g_remote[:4]} vs "
+                                 f"{g_local[:4]}")
+        last = both(qs[0], "14b after the inserts")
+        snap = eng.pool.snapshot()
+        seen = no_cuda_context([p.pid for p in procs[1:]], "14b")
+    log(f"[14b chaos] {n_servers} memory nodes, replication 2, SIGKILL to "
+        f"server 0 after batch {kill_after}: every batch bit-identical to "
+        f"LocalPool, nothing raised | failover {fo} | re-replicated "
+        f"{fo['rereplicate_bytes'] / 1e6:.3f} MB | wall of the batch that "
+        f"met the death {walls[kill_after][0]} s (LocalPool "
+        f"{walls[kill_after][1]} s) | wall s (remote, LocalPool) "
+        f"{walls} | {n_insert} inserts: gids equal, then a search "
+        f"bit-identical | alive {snap['alive']} | "
+        f"{_wire_line(snap['wire_total'], len(ds.queries))} | last "
+        f"launches {last[4]} | {seen}")
+    del local, eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_remote_durable(device, *, k: int, doorbell: int, n: int,
+                         n_append: int, n_search: int,
+                         log_: PathLog) -> None:
+    """Phase 14c: one durable memory node (``--data-dir``) holds the region
+    of ``benchmarks/ingest.py run_recovery``'s geometry (``n`` rows, 8
+    partitions, ``ov_cap`` = ``n_append``; phase 3's region is past the
+    write-ahead log's record bound, ``REDUCED``); ``n_append`` held-out
+    queries are appended through its
+    ``RemotePool`` and through a LocalPool twin; the server gets SIGKILL,
+    restarts on the same directory, and a ``RemotePool`` built with
+    ``attach="auto"`` connects, searched through a ``ComputeClient`` made
+    by its public constructor (``make_pool_factory`` builds pools that
+    upload anew): it must re-attach through the fingerprint handshake
+    (``attached_via == "recovered"``, every logged record replayed), and a
+    search of the last ``n_search`` queries (the appended ones among them,
+    each appended to the partition the meta-HNSW routes it to) is
+    bit-identical to a LocalPool engine over the twin's region and finds
+    every appended row."""
+    ds = sift_like(n=n, n_queries=n_search, seed=SEED)
+    meta = ME.build_meta(ds.data, 8, seed=0, meta_levels=2)
+    store = LA.build_store(ds.data, meta, ov_cap=max(n_append, 8),
+                           sub_params=HNSWParams(M=4, M0=8,
+                                                 ef_construction=40))
+    cfg = exact_config(meta.n_partitions, doorbell, "scan")
+    vecs = np.ascontiguousarray(ds.queries[-n_append:])
+    pids = _route(meta, vecs, device, 1)[:, 0]
+    mirror = copy.deepcopy(store)
+    twin = LocalPool(mirror, device=device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wal_") as ddir:
+        with spawn_pool_servers(1, data_dirs=[ddir],
+                                with_procs=True) as (eps, procs):
+            t0 = time.perf_counter()
+            rp = RemotePool(copy.deepcopy(store), eps[0], device=device)
+            attach_s = time.perf_counter() - t0
+            for i, (vec, pid) in enumerate(zip(vecs, pids)):
+                gid = ds.data.shape[0] + i
+                a, b = (p.append(vec, gid, int(pid), ledger=None)
+                        for p in (twin, rp))
+                if not a == b >= 0:
+                    raise AssertionError(f"14c append {i}: slots {a}, {b}")
+            pre = rp.server_stats()["ingest"]
+            procs[0].kill()
+            procs[0].wait(timeout=10)
+        t0 = time.perf_counter()
+        with spawn_pool_servers(1, data_dirs=[ddir]) as eps2:
+            # make_pool_factory's pools upload the region anew
+            # (attach="always"); recovery asks for attach="auto"
+            rec = ComputeClient(
+                dataclasses.replace(cfg, pool="remote",
+                                    endpoints=(eps2[0],)),
+                lambda st: RemotePool(st, eps2[0], device=device,
+                                      fabric=cfg.fabric, attach="auto"),
+                device).adopt_built(meta, mirror, ds.data)
+            recover_s = time.perf_counter() - t0
+            ing = rec.pool.server_stats()["ingest"]
+            if rec.pool.attached_via != "recovered" or (
+                    ing["replayed_records"] != pre["wal_records"]
+                    or pre["wal_records"] != 1 + n_append):
+                raise AssertionError(f"14c: attached via "
+                                     f"{rec.pool.attached_via}, logged "
+                                     f"{pre}, recovered {ing}")
+            loc = DHNSWEngine(cfg, device=device).adopt_built(
+                meta, mirror, ds.data)
+            q = ds.queries[-n_search:]
+            lo = _search(loc, q, k, device)
+            so = log_.search(rec, q, k)
+            _remote_equal(so, lo, "14c recovered")
+            found = int(sum(ds.data.shape[0] + i in so[1][-n_append + i]
+                            for i in range(n_append)))
+            if found != n_append:
+                raise AssertionError(f"14c: {found} of the {n_append} "
+                                     f"appended rows found by their own "
+                                     f"query")
+    log(f"[14c durable] {n_append} appends logged ({pre['wal_records']} WAL "
+        f"records, {pre['wal_bytes'] / 1e6:.3f} MB: the ATTACH of the "
+        f"region and the appends) -> SIGKILL -> restart: attached via "
+        f"{rec.pool.attached_via}, {ing['replayed_records']} records "
+        f"replayed, checkpoint {ing['checkpoint_bytes'] / 1e6:.3f} MB | "
+        f"recovery wall {recover_s:.2f} s (restart, replay, checkpoint, "
+        f"handshake; the first ATTACH took {attach_s:.2f} s) | search of "
+        f"{n_search} bit-identical to LocalPool over the twin's region, "
+        f"each appended row found by its own query | wall {so[3]:.4f} s "
+        f"(LocalPool {lo[3]:.4f} s) | launches {so[4]}")
+    del rec, loc, twin
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_remote_bench(device, log_: PathLog) -> None:
+    """Phase 14d: ``benchmarks/torch_ingest.py --smoke`` on ``device``:
+    every field of ``recovery`` (a durable memory node killed and
+    recovered from its log) but those in ``CLOCK`` equals
+    ``benchmarks/baselines/BENCH_ingest.json``'s.  One path in
+    ``log_``; its pools (a ``LocalPool`` twin and ``RemotePool``s) append
+    and read rows and gather no span."""
+    base = json.loads((ROOT / "benchmarks" / "baselines"
+                       / "BENCH_ingest.json").read_text())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, log_.path() as launches:
+        ingest = torch_ingest.run(smoke=True, device=device,
+                                  out=f"{tmp}/BENCH_torch_ingest.json")
+    wall = time.perf_counter() - t0
+    _bench_fields_equal(ingest, base, "recovery", CLOCK)
+    rc = ingest["recovery"]
+    log(f"[14d torch_ingest --smoke] recovery equal to the baseline but "
+        f"the clock: {rc['n_appends']} appends, {rc['wal_records']} "
+        f"records {rc['wal_kb']} KB, replayed {rc['replayed_records']}, "
+        f"checkpoint {rc['checkpoint_kb']} KB, via {rc['attached_via']} "
+        f"({rc['recover_wall_s']} s) | {wall:.1f} s | launches {launches}")
 
 
 def main(argv=None) -> int:
@@ -2644,6 +3039,15 @@ def main(argv=None) -> int:
     phase_pool_bench(device, pools)
     phase_serving(device, dev_info["smi"], pools)
     log(f"[12-13] {time.perf_counter() - t12:.1f} s")
+    t14 = time.perf_counter()
+    phase_remote(ds, meta, store, qstore, device, k=FULL["k"],
+                 doorbell=FULL["doorbell"], log_=pools)
+    phase_remote_chaos(ds, meta, store, device, k=FULL["k"],
+                       doorbell=FULL["doorbell"], log_=pools, **CHAOS)
+    phase_remote_durable(device, k=FULL["k"], doorbell=FULL["doorbell"],
+                         log_=pools, **DURABLE)
+    phase_remote_bench(device, pools)
+    log(f"[14] {time.perf_counter() - t14:.1f} s")
     pool_bufs = {}
     pool_recorded = recorded_launches(pools.calls, pool_bufs, "pool.")
     for name in launches:

@@ -144,6 +144,24 @@ class DHNSWEngine:
                 raise ValueError(f"EngineConfig.{name}="
                                  f"{getattr(self.cfg, name)!r} not in "
                                  f"{allowed}")
+        if self.cfg.pool == "sharded":
+            if self.cfg.n_shards < 1:
+                raise ValueError(f"EngineConfig.n_shards="
+                                 f"{self.cfg.n_shards} must be >= 1")
+            if (self.cfg.shard_transport == "remote"
+                    and self.cfg.bearer == "tcp"
+                    and len(self.cfg.endpoints or ()) != self.cfg.n_shards):
+                raise ValueError("shard_transport='remote' over tcp needs "
+                                 "one endpoint per shard: endpoints has "
+                                 f"{len(self.cfg.endpoints or ())} entries "
+                                 f"for n_shards={self.cfg.n_shards}")
+        if self.cfg.bearer not in ("tcp", "loopback"):
+            raise ValueError(f"EngineConfig.bearer={self.cfg.bearer!r} not "
+                             "in ('tcp', 'loopback')")
+        if (self.cfg.pool == "remote" and self.cfg.bearer == "tcp"
+                and not self.cfg.endpoints):
+            raise ValueError("pool='remote' over tcp needs "
+                             "EngineConfig.endpoints")
         if self.cfg.replication < 1 or (
                 self.cfg.replication > 1
                 and self.cfg.pool not in ("sharded", "remote")):

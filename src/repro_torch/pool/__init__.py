@@ -8,11 +8,13 @@ Port of ``repro/pool``.  Transports:
 * ``ShardedPool``       — the region split group-granularly across N
                           child pools with per-shard doorbell fan-out,
                           pluggable (migrating) placement, replication
-                          and failover.
+                          and failover;
+* ``RemotePool``        — (``repro_torch/net``) the verbs marshaled over
+                          the loopback or TCP bearer to a memory node
+                          that holds the region in host memory, measured
+                          wire bytes cross-checked against the model.
 
-The remote transport (``pool="remote"``, ``shard_transport="remote"``)
-raises until ``net/`` is ported (ROADMAP "Modules to port" item 7).
-Every pool and every child is staged on the engine's ``device``.
+Every pool and every child serves the engine's ``device``.
 """
 from repro_torch.pool.compute import ComputeClient
 from repro_torch.pool.local import LocalPool
@@ -32,11 +34,9 @@ __all__ = ["MemoryPool", "LocalPool", "SimulatedRDMAPool", "ShardedPool",
            "make_placement", "make_pool_factory", "span_wire_bytes",
            "fanout_dt", "fabric_params"]
 
-_REMOTE = ("is ported with net/ (ROADMAP 'Modules to port' item 7)")
-
 
 def make_pool_factory(cfg, device):
-    """Store -> MemoryPool, per ``EngineConfig.pool``, staged on
+    """Store -> MemoryPool, per ``EngineConfig.pool``, serving
     ``device``."""
     if cfg.pool == "local":
         return lambda store: LocalPool(
@@ -46,9 +46,31 @@ def make_pool_factory(cfg, device):
             store, device=device, fabric=cfg.fabric,
             use_gather_kernel=cfg.use_gather_kernel)
     if cfg.pool == "remote":
-        raise NotImplementedError(f"pool='remote' {_REMOTE}")
+        # lazy import: the net subsystem is only needed when it is used
+        from repro_torch.net.client import RemotePool
+        if cfg.bearer == "loopback":
+            # in-process HostRegion behind the same verbs/QP path — no
+            # endpoints, no sockets (the conformance bearer)
+            return lambda store: RemotePool(store, None, device=device,
+                                            fabric=cfg.fabric,
+                                            bearer="loopback")
+        eps = tuple(cfg.endpoints or ())
+        if not eps:
+            raise ValueError("pool='remote' needs EngineConfig.endpoints")
+        if len(eps) == 1:
+            return lambda store: RemotePool(store, eps[0], device=device,
+                                            fabric=cfg.fabric)
+        # several server processes: shard over one RemotePool per node
+        children = [lambda store, ep=ep: RemotePool(
+            store, ep, device=device, fabric=cfg.fabric) for ep in eps]
+        return lambda store: ShardedPool(
+            store, children, device=device,
+            placement=make_placement(cfg.placement),
+            parallel=cfg.shard_parallel, replication=cfg.replication,
+            shard_budgets=cfg.shard_budgets,
+            straggler_check_every=cfg.straggler_check_every)
     if cfg.pool == "sharded":
-        def child(fabric):
+        def child(fabric, ep=None):
             if cfg.shard_transport == "local":
                 return lambda store: LocalPool(
                     store, device=device,
@@ -58,8 +80,10 @@ def make_pool_factory(cfg, device):
                     store, device=device, fabric=fabric,
                     use_gather_kernel=cfg.use_gather_kernel)
             if cfg.shard_transport == "remote":
-                raise NotImplementedError(
-                    f"shard_transport='remote' {_REMOTE}")
+                from repro_torch.net.client import RemotePool
+                return lambda store: RemotePool(
+                    store, ep, device=device, fabric=fabric,
+                    bearer=cfg.bearer)
             raise ValueError(
                 f"unknown shard transport {cfg.shard_transport!r}")
 
@@ -73,7 +97,11 @@ def make_pool_factory(cfg, device):
             if len(eps) != cfg.n_shards:
                 raise ValueError(f"endpoints has {len(eps)} entries "
                                  f"for n_shards={cfg.n_shards}")
-        children = [child(f) for f in fabrics]
+        else:
+            # in-process children never take endpoints — ignore any so
+            # zip below can't silently truncate the shard list
+            eps = (None,) * cfg.n_shards
+        children = [child(f, ep) for f, ep in zip(fabrics, eps)]
         return lambda store: ShardedPool(
             store, children, device=device,
             placement=make_placement(cfg.placement),

@@ -20,8 +20,8 @@ keep running totals (``totals``) and per-verb invocation counts
 Transports that model or measure a wire hook ``_transport``: the slice
 it returns is recorded into the per-(verb, shard) latency histograms
 (``hist``) the straggler detector reads.  The port has the in-process
-(``LocalPool``), simulated-RDMA (``SimulatedRDMAPool``) and sharded
-(``ShardedPool``) transports; the remote one waits for ``net/``.
+(``LocalPool``), simulated-RDMA (``SimulatedRDMAPool``), sharded
+(``ShardedPool``) and remote (``repro_torch.net.RemotePool``) transports.
 """
 from __future__ import annotations
 

@@ -2,10 +2,10 @@
 
 Port of ``repro/pool/sharded.py``.  The parent stages its meta table on
 ``device``, and ``make_pool_factory`` builds every child on that same
-device (the ``RemotePool`` child named below waits for the port of
-``net/``).  The host-side state (placement, replicas, liveness, heat
-counters, the failover and migration tallies) is the reference's numpy
-code unchanged, so those fields equal the reference's.  The span merge
+device (a ``RemotePool`` child uploads what it reads there).  The
+host-side state (placement, replicas, liveness, heat counters, the
+failover and migration tallies) is the reference's numpy code unchanged,
+so those fields equal the reference's.  The span merge
 fills one device buffer per output with ``index_copy_``; the row fan-out
 selects each owner's lanes with ``torch.where``.
 

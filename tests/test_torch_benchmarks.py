@@ -6,12 +6,19 @@ round trips, tier slots, recall), and ``benchmarks/torch_throughput.py``
 the counted rows (round trips, cache hits, fetches, bytes, modelled
 network time) of the JAX ``benchmarks/throughput.py`` at the same tiny
 size.  ``benchmarks/torch_pool.py --smoke`` must give every field of
-``BENCH_pool.json``'s ``rows``, ``shard_rows`` and ``chaos_latency`` but
-the wall clock (all counted or on the modeled clock), and
+``BENCH_pool.json``'s ``rows``, ``shard_rows``, ``transport_rows``,
+``chaos`` and ``chaos_latency`` but the host clock and the servers'
+ports (all counted, measured on the wire or on the modeled clock),
+``benchmarks/torch_ingest.py --smoke`` every field of
+``BENCH_ingest.json``'s ``recovery`` but the wall clock, and
 ``benchmarks/torch_serving.py --smoke`` its ``counted`` table.  Only
 counted numbers are compared: walls and times are the CPU's.
 """
+import contextlib
 import json
+import os
+import signal
+import subprocess
 import sys
 from pathlib import Path
 
@@ -24,6 +31,10 @@ COUNTED = ("quant", "recall", "mbytes", "mbytes_saved", "round_trips",
            "exact_frac", "rerank_m", "quant_slots", "exact_slots",
            "quant_kernel", "kernel_active", "bytes_reduction")
 TINY = dict(sift_n=1000, n_queries=32, batch=32, n_rep=8)
+# fields of the pool and ingest tables read off the host's clock, or the
+# port a server was given
+CLOCK = {"wall_s", "p50_ms", "p99_ms", "kill_batch_ms", "endpoint",
+         "recover_wall_s"}
 
 
 @pytest.fixture(scope="module")
@@ -34,6 +45,21 @@ def benchmarks():
     finally:
         sys.path.remove(str(ROOT))
     return torch_quant, torch_throughput
+
+
+@contextlib.contextmanager
+def time_limit(seconds: int):
+    """Raise in the test after ``seconds``: a stuck pool server's socket
+    cannot hold the run."""
+    def boom(*_):
+        raise TimeoutError(f"ran past {seconds} s")
+    old = signal.signal(signal.SIGALRM, boom)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def _baseline(name: str) -> dict:
@@ -129,28 +155,54 @@ def test_torch_throughput_serves_a_prebuilt_index(benchmarks):
 
 
 def test_torch_pool_smoke_reproduces_the_baseline(tmp_path):
-    """Every field of the fabric sweep, the shard x placement sweep and
-    the straggler chaos row but ``wall_s`` equals the committed
-    baseline's: counted verbs, the modeled clock, placement, migrations
-    and the per-shard staged bytes.  The tables that need PoolServer
-    processes are named as not ported, not written empty."""
+    """Every field of the fabric sweep, the shard x placement sweep, the
+    transport table (local, sim_rdma, remote over loopback and tcp), the
+    kill -9 chaos row and the straggler chaos row but the host clock and
+    the server's port equals the committed baseline's: counted verbs, the
+    modeled clock, the measured wire bytes and frames, the failover
+    counters, placement, migrations and the per-shard staged bytes."""
     torch_pool = _import_bench("torch_pool")
     out = tmp_path / "BENCH_torch_pool.json"
-    blob = torch_pool.run(smoke=True, out=str(out), device="cpu")
+    with time_limit(240):                  # forks four pool servers
+        blob = torch_pool.run(smoke=True, out=str(out), device="cpu")
     assert json.loads(out.read_text()) == blob
     base = _baseline("BENCH_pool.json")
     assert (blob["n"], blob["n_rep"], blob["n_batches"]) == (
         base["n"], base["n_rep"], base["n_batches"])
-    for table in ("rows", "shard_rows"):
+    for table in ("rows", "shard_rows", "transport_rows"):
         assert len(blob[table]) == len(base[table]), table
         for got, want in zip(blob[table], base[table]):
             assert set(got) == set(want), table
-            for key in set(want) - {"wall_s"}:
+            for key in set(want) - CLOCK:
                 assert got[key] == want[key], (table, key)
+    assert set(blob["chaos"]) == set(base["chaos"])
+    for key in set(base["chaos"]) - CLOCK:
+        assert blob["chaos"][key] == base["chaos"][key], key
     assert blob["chaos_latency"] == base["chaos_latency"]
-    assert set(blob["not_ported"]) == {"transport_rows", "chaos"}
-    assert all("item 7" in why for why in blob["not_ported"].values())
-    assert "transport_rows" not in blob and "chaos" not in blob
+    assert [r.get("bearer") for r in blob["transport_rows"]] == [
+        None, None, "loopback", "tcp"]
+    assert "not_ported" not in blob
+
+
+def test_torch_ingest_smoke_gives_the_recovery_row(tmp_path):
+    """``benchmarks/torch_ingest.py --smoke --device cpu``, run as its
+    command line: the ``recovery`` row (a durable server killed with
+    SIGKILL and recovered from its WAL) equals ``BENCH_ingest.json``'s but
+    the wall clock, and ``load_rows`` holds one bit-identical row."""
+    out = tmp_path / "BENCH_torch_ingest.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks" / "torch_ingest.py"),
+         "--smoke", "--device", "cpu", "--out", str(out)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    blob = json.loads(out.read_text())
+    want = _baseline("BENCH_ingest.json")["recovery"]
+    got = blob["recovery"]
+    assert set(got) == set(want)
+    assert {k: v for k, v in got.items() if k not in CLOCK} == {
+        k: v for k, v in want.items() if k not in CLOCK}
+    assert [r["bit_identical"] for r in blob["load_rows"]] == [True]
 
 
 def test_torch_serving_smoke_reproduces_the_counted_table(tmp_path):

@@ -17,6 +17,7 @@ import dataclasses
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -224,15 +225,26 @@ def test_cuda_without_a_card_raises():
         DHNSWEngine(EngineConfig(n_rep=8), device="cuda:0")
 
 
-def test_paths_outside_the_slice_raise(built_engine, sift_small):
-    """The remote transport is not ported yet, alone or as a shard child
-    (the simulated-RDMA and sharded pools are:
-    ``tests/test_torch_pool.py``)."""
-    for kw in (dict(pool="remote"),
-               dict(pool="sharded", shard_transport="remote",
-                    endpoints=("localhost:1", "localhost:2"))):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            DHNSWEngine(EngineConfig(**kw, **BASE), device="cpu")
+@pytest.mark.parametrize("kw", [
+    dict(bearer="ib"),
+    dict(pool="remote"),
+    dict(pool="sharded", n_shards=2, shard_transport="remote",
+         endpoints=("localhost:1",)),
+], ids=["bearer", "remote-without-endpoints", "shard-endpoints"])
+def test_paths_outside_the_slice_raise(kw):
+    """The configurations the reference's constructor rejects — a bearer
+    other than tcp or loopback, ``pool="remote"`` over tcp without
+    endpoints, ``shard_transport="remote"`` over tcp with one endpoint per
+    shard missing — raise ``ValueError`` in the port's, before any pool is
+    built.  (The name dates from the slices before the remote transport
+    was ported.)"""
+    with pytest.raises(ValueError, match="bearer|endpoint"):
+        DHNSWEngine(EngineConfig(**kw, **BASE), device="cpu")
+    pytest.importorskip("jax")
+    from repro.core import DHNSWEngine as JEngine
+    from repro.core import EngineConfig as JConfig
+    with pytest.raises(AssertionError):
+        JEngine(JConfig(**kw, **BASE))
 
 
 # ------------------------------------------------------------ chip_smoke
@@ -343,7 +355,8 @@ def test_chip_smoke_pool_phases_on_cpu(chip_smoke, capsys):
     """Phases 12 (the multi-node pools) and 13 (the serving benchmark) on
     the CPU, at ``benchmarks/torch_pool.py``'s smoke geometry (1500 rows,
     12 partitions, 2 shards, 12 zipf batches of 32): every check of theirs
-    runs, the shard rows equal the smoke baseline's, and the gather calls
+    runs (12d's five benchmark tables, the two that fork pool servers
+    among them), the shard rows equal the smoke baseline's, and the gather calls
     they record become phase 4 launches on named buffers."""
     cs = chip_smoke
     cpu = torch.device("cpu")
@@ -362,7 +375,15 @@ def test_chip_smoke_pool_phases_on_cpu(chip_smoke, capsys):
     assert "staged MB [1.225, 1.225]" in out and "[2.45, 1.225]" in out
     n12 = len(pools.calls)
     assert n12 > 0
-    cs.phase_pool_bench(cpu, pools)
+    def boom(*_):
+        raise TimeoutError("phase 12d ran past 240 s")
+    old = signal.signal(signal.SIGALRM, boom)
+    signal.alarm(240)                      # 12d forks four pool servers
+    try:
+        cs.phase_pool_bench(cpu, pools)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
     n12d = len(pools.calls)
     cs.phase_serving(cpu, "cpu", pools)
     # both benchmarks read their spans through the gather's wrapper

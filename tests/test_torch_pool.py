@@ -854,8 +854,11 @@ def test_slo_and_metrics_with_dead_shard(pkgs, built, pds):
 # ------------------------------------------------------------ factory
 
 def test_factory_checks_and_remote_raises(pkgs, built, pds):
-    """``make_pool_factory`` checks the per-shard lists' lengths; the
-    remote transport, single or as a shard child, waits for ``net/``."""
+    """The per-shard lists' lengths are checked before a pool is built
+    (``shard_fabrics`` by ``make_pool_factory``; a remote child's
+    endpoints, and the engine's other checks, by the constructor), and
+    every sharded child serves the engine's device.  (The name dates from
+    the slices before the remote transport was ported.)"""
     from repro_torch import DHNSWEngine, EngineConfig
     from repro_torch.core.cost_model import RDMA_100G
     with pytest.raises(ValueError, match="shard_fabrics"):

@@ -1,5 +1,6 @@
-"""The port's verbs layer, 1/N compacted staging and WR injector on the
-CPU: twins of ``tests/test_rdma.py`` (verbs units, 1/N staging) and of
+"""The port's verbs layer, bearers, 1/N compacted staging and WR injector
+on the CPU: twins of ``tests/test_rdma.py`` (verbs units, bearer
+conformance, 1/N staging, the failure surface) and of
 ``tests/test_obs.py``'s report CLI and WR-injector tests.
 
 ``repro_torch.rdma`` and ``repro_torch.net.wire`` are copies of the
@@ -8,9 +9,14 @@ originals); here they must also behave as the originals on the same
 inputs: the same frames, MR geometry, completions and injection
 schedules.  The staging twins run the port's sharded pool and the
 reference's on the same store and compare every child's staging tallies
-and the data they serve.
+and the data they serve.  The bearer twins run ``RemotePool`` over the
+loopback bearer (an in-process ``HostRegion``) and the tcp bearer (a
+spawned ``python -m repro_torch.net.server``): bit-identical to the
+port's ``LocalPool``, and equal to the reference's remote pool on the
+same index (gids, ``net``, the measured wire of every verb).
 """
 import copy
+import signal
 
 import numpy as np
 import pytest
@@ -57,6 +63,33 @@ def _stores(tiny):
     meta, store = tiny
     return (copy.deepcopy(store),
             convert.state_from_numpy(*convert.numpy_state(meta, store))[1])
+
+
+@pytest.fixture(scope="module")
+def servers(jax_pkg):
+    """One pool server of each package: package name -> endpoints."""
+    from repro.net import spawn_pool_servers as rspawn
+
+    from repro_torch.net import spawn_pool_servers
+    with rspawn(1) as reps, spawn_pool_servers(1) as teps:
+        yield {"repro": reps, "repro_torch": teps}
+
+
+class Overtime(BaseException):
+    """A test ran past its time limit (not an ``OSError``: no transport
+    may swallow it)."""
+
+
+@pytest.fixture()
+def time_limit():
+    """Fails a test that spawns or talks to servers after 120 s."""
+    def boom(*_):
+        raise Overtime("test ran past 120 s")
+    old = signal.signal(signal.SIGALRM, boom)
+    signal.alarm(120)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 
 def _local(st):
@@ -290,6 +323,167 @@ def test_failover_restages_only_dead_shards_groups(jax_pkg, tiny):
         assert torch.equal(x, y)
 
 
+# ------------------------------------------------- bearer conformance
+
+CFG = dict(mode="full", search_mode="scan", n_rep=12, b=3, ef=32,
+           cache_frac=0.25, seed=3)
+
+
+@pytest.fixture(scope="module")
+def built(jax_pkg, pds):
+    """One index over ``pds`` built by the JAX package at ``CFG``."""
+    from repro.core import DHNSWEngine as RE
+    from repro.core import EngineConfig as RC
+    return RE(RC(**CFG)).build(pds[0])
+
+
+def _engines(built, data, pool: str, **over):
+    """(reference engine, port engine) over copies of one index, on
+    ``RDMA_100G``."""
+    from repro.core import DHNSWEngine as RE
+    from repro.core import EngineConfig as RC
+    from repro.core.cost_model import RDMA_100G as RF
+
+    from repro_torch import DHNSWEngine, EngineConfig
+    over = {**CFG, **over, "pool": pool}
+    ref = RE(RC(**over, fabric=RF))
+    ref.client.adopt_built(copy.deepcopy(built.meta),
+                           copy.deepcopy(built.store), data)
+    eng = DHNSWEngine(EngineConfig(**over, fabric=RDMA_100G), device="cpu")
+    eng.client.adopt_built(*convert.state_from_numpy(
+        *convert.numpy_state(built.meta, built.store)), data)
+    return ref, eng
+
+
+def _search_identical(e0, e1, queries):
+    d0, g0, st0 = e0.search(queries, k=10)
+    d1, g1, st1 = e1.search(queries, k=10)
+    assert np.array_equal(g0, g1) and np.array_equal(d0, d1)
+    assert st0["net"] == st1["net"]
+    return d1, g1, st1
+
+
+def _port_vs_ref(ref_out, port_out):
+    (dr, gr, sr), (dt, gt, st) = ref_out, port_out
+    assert np.array_equal(gt, gr)
+    np.testing.assert_allclose(dt, dr, rtol=1e-5, atol=1e-4)
+    assert st["net"] == sr["net"]
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("bearer", ["loopback", "tcp"])
+def test_bearer_conformance_bit_identical(built, pds, servers, time_limit,
+                                          bearer, quant):
+    """The QP path over either bearer: search + insert bit-identical to
+    LocalPool, ledger parity, measured wire bytes == the model for every
+    read verb (append frames carry the 8-byte partition address beyond
+    it); against the reference's remote engine, results, ``net`` and the
+    measured wire of every verb agree."""
+    data, queries = pds
+    _, e0 = _engines(built, data, "local", quant=quant)
+    eps = {n: ((servers[n][0],) if bearer == "tcp" else None)
+           for n in servers}
+    ref, _ = _engines(built, data, "remote", quant=quant, bearer=bearer,
+                      endpoints=eps["repro"])
+    _, e1 = _engines(built, data, "remote", quant=quant, bearer=bearer,
+                     endpoints=eps["repro_torch"])
+    _port_vs_ref(ref.search(queries, k=10),
+                 _search_identical(e0, e1, queries))
+    new = queries[:2] + 0.001
+    gids = [e.insert(new) for e in (e0, e1, ref)]
+    assert np.array_equal(gids[0], gids[1]) and np.array_equal(gids[1],
+                                                               gids[2])
+    _port_vs_ref(ref.search(queries[:8], k=10),
+                 _search_identical(e0, e1, queries[:8]))
+    snap, rsnap = e1.pool.snapshot(), ref.pool.snapshot()
+    assert snap["bearer"] == bearer
+    wvm = snap["wire_vs_model"]
+    assert wvm and wvm == rsnap["wire_vs_model"]
+    for verb, row in wvm.items():
+        if verb.startswith("read"):
+            assert row["measured"] == row["modeled"], (verb, row)
+        elif verb == "append":
+            assert row["modeled"] <= row["measured"] < 1.05 * row["modeled"]
+    for key in ("frames_tx", "frames_rx", "bytes_tx", "bytes_rx",
+                "payload_by_verb", "model_by_verb", "frames_by_verb"):
+        assert snap["wire"][key] == rsnap["wire"][key], key
+    assert snap["verbs"] == rsnap["verbs"]
+    assert snap["totals"] == rsnap["totals"]
+
+
+def test_sharded_over_loopback_regions_bit_identical(built, pds):
+    """Two RemotePool children, each over its own in-process HostRegion:
+    the sharded fan-out through the QP path stays bit-identical, and every
+    child's wire equals the reference's."""
+    data, queries = pds
+    _, e0 = _engines(built, data, "local")
+    ref, e1 = _engines(built, data, "sharded", shard_transport="remote",
+                       bearer="loopback", n_shards=2)
+    _port_vs_ref(ref.search(queries, k=10),
+                 _search_identical(e0, e1, queries))
+    snap, rsnap = e1.pool.snapshot(), ref.pool.snapshot()
+    assert all(s["bearer"] == "loopback" for s in snap["shards"])
+    assert snap["wire_total"]["frames_tx"] > 0
+    assert snap["wire_total"] == rsnap["wire_total"]
+
+
+def test_loopback_raw_verbs_match_local_with_doorbell_frames(jax_pkg, tiny,
+                                                             pds):
+    """One WR-list post per doorbell batch — 5 spans at doorbell=2 cost
+    exactly 3 frames == the ledger's round trips — and every verb result
+    and charge matches LocalPool's and the reference remote pool's."""
+    from repro.core.cost_model import NetLedger as RLed
+    from repro.core.cost_model import RDMA_100G as RF
+    from repro.net import RemotePool as RRemote
+
+    from repro_torch.net import RemotePool
+    data, _ = pds
+    rstore, s0 = _stores(tiny)
+    _, s1 = _stores(tiny)
+    lp = _local(s0)
+    rp = RemotePool(s1, None, device="cpu", bearer="loopback")
+    jp = RRemote(rstore, None, bearer="loopback")
+    led_l, led_r, led_j = NetLedger(RDMA_100G), NetLedger(RDMA_100G), \
+        RLed(RF)
+    pids = np.array([0, 2, 3, 5, 6])
+    f0 = rp.wire["frames_tx"]
+    a = lp.read_spans(pids, ledger=led_l, doorbell=2)
+    b = rp.read_spans(pids, ledger=led_r, doorbell=2)
+    c = jp.read_spans(pids, ledger=led_j, doorbell=2)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and np.array_equal(_np(y), _np(z))
+    assert rp.wire["frames_tx"] - f0 == 3 == led_r.round_trips
+    assert led_l.as_dict() == led_r.as_dict() == led_j.as_dict()
+    rows = np.array([[0, 5, 9], [2, -1, 7]], np.int32)
+    got = rp.read_rows(torch.as_tensor(rows))
+    assert torch.equal(lp.read_rows(torch.as_tensor(rows)), got)
+    assert np.array_equal(_np(got), _np(jp.read_rows(rows)))
+    vec = data[0] + 0.5
+    slots = [p.append(vec, 9999, 1, ledger=led)
+             for p, led in ((lp, led_l), (rp, led_r), (jp, led_j))]
+    assert slots[0] == slots[1] == slots[2] >= 0
+    for st in (s1, rstore):
+        assert np.array_equal(s0.vec_buf, st.vec_buf)
+        assert np.array_equal(s0.meta_table, st.meta_table)
+    assert led_l.as_dict() == led_r.as_dict() == led_j.as_dict()
+    assert rp.wire["frames_by_verb"] == jp.wire["frames_by_verb"]
+    rp.close()
+    jp.close()
+
+
+def test_loopback_server_error_drains_and_surfaces(tiny):
+    """A bad descriptor raises a clean RuntimeError; the bearer stays
+    usable (completions were drained, not abandoned)."""
+    from repro_torch.net import RemotePool
+    rp = RemotePool(_stores(tiny)[1], None, device="cpu", bearer="loopback")
+    with pytest.raises(RuntimeError, match="pool server error"):
+        rp.read_spans(np.array([0, 999]), ledger=None)
+    g, v = rp.read_spans(np.array([1]), ledger=None)
+    assert v.shape[0] == 1 and v.dtype == torch.float32
+    assert g.dtype == torch.int32
+    rp.close()
+
+
 # ------------------------------------------------- report and injector
 
 def test_report_names_dominant_stage(tmp_path, capsys):
@@ -347,11 +541,17 @@ def test_wr_injector_error_is_connection_error():
 
 
 def test_net_exposes_only_the_wire():
-    """``repro_torch.net`` carries the wire framing the verbs layer needs;
-    the remote transport is not ported, and nothing stands in for it."""
+    """``repro_torch.net`` carries the wire framing the verbs layer needs
+    and the remote transport built on it, the reference's names; the
+    verbs layer frames WR lists through that one wire module."""
+    pytest.importorskip("jax")
+    import repro.net as RN
+
     import repro_torch.net as N
-    assert N.__all__ == ["wire"]
-    for name in ("RemotePool", "PoolServer", "spawn_pool_servers"):
-        assert not hasattr(N, name)
+    assert set(N.__all__) == set(RN.__all__) | {"wire"}
+    for name in ("RemotePool", "PoolServer", "HostRegion",
+                 "spawn_pool_servers", "PoolUnavailableError"):
+        assert getattr(N, name).__module__.startswith("repro_torch.")
+    assert N.wire is W
     assert W.OP_READ_SPANS == V.wr_frame(
         [V.read_wr(V.RKEY_SPANS, 0, 8)])[0]

@@ -159,9 +159,17 @@ COPIES = ([f"configs/{p.name}" for p in
           + ["obs/hist.py", "obs/slo.py", "obs/metrics.py",
              "serve/batcher.py", "serve/server.py", "ingest/loader.py",
              "ingest/compactor.py", "obs/report.py", "pool/placement.py",
-             "net/wire.py"]
+             "net/wire.py", "net/server.py", "ingest/wal.py",
+             "ingest/checkpoint.py"]
           + [f"rdma/{p.name}" for p in
              sorted((ROOT / "src/repro/rdma").glob("*.py"))])
+# beyond the imports, what ``net/server.py`` needs to spawn the port's own
+# server: ``_src_path`` imports and measures the port's package, and the
+# spawned module is the port's
+SERVER_REWRITES = (("    import repro\n", "    import repro_torch\n"),
+                   ("repro.__file__", "repro_torch.__file__"),
+                   ("repro.__path__", "repro_torch.__path__"),
+                   ('"repro.net.server"', '"repro_torch.net.server"'))
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -170,6 +178,10 @@ def test_copies_are_the_originals_with_imports_rewritten(rel):
     port = (ROOT / "src/repro_torch" / rel).read_text()
     want = orig.replace("from repro.", "from repro_torch.").replace(
         'import_module(f"repro.', 'import_module(f"repro_torch.')
+    if rel == "net/server.py":
+        for old, new in SERVER_REWRITES:
+            assert old in want, old
+            want = want.replace(old, new)
     assert port == want
 
 
