@@ -95,13 +95,37 @@ Phases, each printing its own lines:
     bit-identical search; (d) ``torch_pool.py --smoke --transport
     --chaos`` and ``torch_ingest.py --smoke``, equal to the baselines but
     the clock.
+15. the slice's LM families at full width over phase 5's exact-scan
+    engine in phase 9's geometry (8 prompts of 64 tokens, 4 documents of
+    240, 32 new tokens): (a) ``RagServeEngine`` with
+    ``qwen3-moe-30b-a3b`` (128 experts, top-8; all 48 layers when they
+    fit beside the index, else the deepest multiple of 8, printed), two
+    calls with equal tokens, the prefill and decode times, the
+    decode_attention launches and the share of expert assignments
+    dropped at capacity; (b) one call each for ``mamba2-370m``,
+    ``zamba2-2.7b``, ``pixtral-12b`` (full depth) and
+    ``llama4-scout-17b-a16e`` (depth cut to 4), pixtral's model-level
+    prefill with 256 patches, and ``whisper-tiny`` through
+    ``model.prefill`` with frames (B=8, enc_seq 1500) and 32 decode
+    steps; (c) the six configurations at full width and 2 layers in f32,
+    card against CPU on the same weights: greedy tokens equal, logits
+    within ``CARD_CPU_TOL``;
+16. ``core.distributed.ShardedStore`` over phase 3's store, fetching
+    phase 5's first round of spans: 4 gloo ranks (processes) on the one
+    card over CUDA tensors, then 1 NCCL rank, each fetch one all-reduce,
+    bit-equal to the store's rows.
+
+Phases 15 and 16 run right after phase 9 (the LM phases together, on a
+host not yet loaded by the pool phases' servers and threads), phases
+10-14 after them.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
 planned from the engine's embedding of the prompts, and the launches of
-the searches of phases 10-14 (recorded there, on the buffers they
+the searches of phases 10-15 (recorded there, on the buffers they
 read); ``decode_attention`` is held at the inputs of phase 9's first
-decode call (captured there) and at a long-context shape (B=16,
-S=32768); ``quant_topk`` is also held at the flat shape at k = 256 and
+decode call (captured there), of the first decode calls of phase 15's
+qwen3-moe (G=8), llama4-scout (G=5), zamba2 (hd=80, G=1) and whisper
+(hd=64, G=1), and at a long-context shape (B=16, S=32768); ``quant_topk`` is also held at the flat shape at k = 256 and
 1024 and on group-2 codes, and ``distance_topk`` at k = 256.
 
 Each top-k time stands beside the product alone through cuBLAS
@@ -137,6 +161,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -167,6 +192,7 @@ from repro_torch.core.cost_model import RDMA_100G  # noqa: E402
 from repro_torch.core.hnsw import HNSWParams, recall_at_k  # noqa: E402
 from repro_torch.data.synthetic import sift_like  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.convert import SPEC_FIELDS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DA  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
@@ -179,6 +205,10 @@ from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
     dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
 from repro_torch.models import layers as LY  # noqa: E402
+from repro_torch.models import model as LM  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import params as PR  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.net import RemotePool, spawn_pool_servers  # noqa: E402
 from repro_torch.pool import LocalPool  # noqa: E402
 from repro_torch.pool.compute import ComputeClient  # noqa: E402
@@ -228,6 +258,28 @@ CHAOS = dict(n_servers=3, n_batches=4, kill_after=2, n_insert=16)
 # phase 14c: benchmarks/ingest.py run_recovery's full geometry (8000 rows,
 # 64 appends), searched with 500 queries
 DURABLE = dict(n=8000, n_append=64, n_search=500)
+# phase 15: the slice's LM families served over phase 5's engine in phase
+# 9's geometry (RAG less its call count); 15a qwen3-moe-30b-a3b (full
+# depth if it fits beside the index, else the deepest multiple of 8),
+# 15b the others, llama4-scout's depth cut (about 4.5 GB of bf16
+# matrices a layer), whisper through model.prefill with frames
+MOE_ARCH = "qwen3-moe-30b-a3b"
+RAG_GEOM = {k: v for k, v in RAG.items() if k != "n_calls"}
+FAMILY_DEPTH = {"mamba2-370m": None, "zamba2-2.7b": None,
+                "pixtral-12b": None, "llama4-scout-17b-a16e": 4}
+WHISPER = dict(arch="whisper-tiny", batch=8, prompt_len=64,
+               max_new_tokens=32)
+MEM_MARGIN = 8e9             # bytes left free beside a model's weights
+# phase 15c: each configuration at full width and 2 layers (the hybrid 2
+# uses of its shared block) in f32, card against CPU: logits within a few
+# f32 ulps of the largest logit summed over d_model-long products
+CARD_CPU_ARCHS = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
+                  "pixtral-12b", "mamba2-370m", "zamba2-2.7b",
+                  "whisper-tiny")
+CARD_CPU = dict(batch=2, seq=64, steps=4, n_layers=2)
+CARD_CPU_TOL = dict(atol=1e-3, rtol=1e-3)
+# phase 16: ShardedStore over 4 gloo ranks on the one card, and 1 NCCL rank
+SHARD_STORE = dict(world=4, iters=20)
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
 # they differ by at most one step of each element); in f32 at the gpu
@@ -508,7 +560,7 @@ def gather_launches(exact_gathers, pair_gathers, rag_gathers=(),
     then scan), then phase 8's counted run in each search mode
     (``pair_gathers``: mode -> the result of ``pair_path_gathers``), then
     phase 9's retrieval (``rag_path_gathers``' result), then the launches
-    phases 10-14 recorded (``recorded_launches``)."""
+    phases 10-15 recorded (``recorded_launches``)."""
     out = [(EXACT_BUFS, ids) for _ in ("graph", "scan")
            for ids in exact_gathers[0]]
     for batches in pair_gathers.values():
@@ -962,9 +1014,10 @@ def _decode_sweep(label: str, sets, want, bound_ms: float, sdpa,
 
 def _decode_record(shapes, device, timed: bool, sweep: bool = False) -> dict:
     """decode_attention against its plain version at each of ``shapes``
-    ((label, q, k, v, pos), the first one the decode path's), as
-    ``_decode_checks`` holds it; at the path's shape also against
-    ``attend_decode`` at pos - 1.  Timed over copies that together
+    ((label, q, k, v, pos), the first one the decode path's, then the
+    first calls of the other paths' families, then ``long``), as
+    ``_decode_checks`` holds it; at every shape but ``long`` (a call a
+    path makes) also against ``attend_decode`` at pos - 1.  Timed over copies that together
     exceed the 50 MB L2 (the path finds each layer's cache cold: the
     whole model's weights stream between two calls on one layer).  The
     record's numbers are the first shape's.  ``sweep``: see
@@ -978,7 +1031,8 @@ def _decode_record(shapes, device, timed: bool, sweep: bool = False) -> dict:
     for j, (label, q, k, v, pos) in enumerate(shapes):
         B, H, hd = q.shape
         S, K = k.shape[1], k.shape[2]
-        err, want, line = _decode_checks(q, k, v, pos, route=j == 0)
+        err, want, line = _decode_checks(q, k, v, pos,
+                                         route=label != "long")
         valid = int(torch.clamp(pos, 0, S).sum())
         nbytes = (2 * valid * K * hd * k.element_size()
                   + 2 * q.numel() * q.element_size() + 4 * B)
@@ -1081,7 +1135,7 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
     the quant_topk call.  Top-k ids equal up to ties and distances within
     rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
     ``_decode_record``), when given.  ``extra_bufs`` names the buffers
-    of the launches phases 10-14 recorded.  Beside the path's calls,
+    of the launches phases 10-15 recorded.  Beside the path's calls,
     ``quant_topk`` is held at the flat shape at k = 256 and 1024 (the
     large-k route) and on group-2 codes of the same rows (the per-code
     scale path), and ``distance_topk`` at k = 256 (``wide_topk``).  Times
@@ -1644,8 +1698,7 @@ def phase_rag(ds, meta, store, device, *, cfg, doorbell: int, doc_len: int,
         eng.close()
     _reset_launches()
     del eng
-    if on_card:
-        torch.cuda.empty_cache()
+    _free(device)
     return launches, gathers, capture.args
 
 
@@ -1673,7 +1726,7 @@ class CallLog:
 
 
 class PathLog:
-    """The launches and gather calls of a path's searches (phases 10-14):
+    """The launches and gather calls of a path's searches (phases 10-15):
     inside ``path()`` every launch count starts at 0 and is read at the
     end (into the dict it yields, and summed into ``launches``), and each
     ``gather_spans`` call is recorded (its buffers and ids) so phase 4
@@ -2987,6 +3040,613 @@ def phase_remote_bench(device, log_: PathLog) -> None:
         f"({rc['recover_wall_s']} s) | {wall:.1f} s | launches {launches}")
 
 
+# ------------------------------------------------------ LM families (15)
+
+def attention_layers(cfg) -> int:
+    """Layers a decode step sends through ``decode_attention``: every
+    decoder layer of the transformer families and of encdec, the hybrid's
+    shared block once a use, none of mamba2's (these configurations have
+    no sliding window and no score softcap)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def param_bytes(cfg) -> int:
+    """Bytes of a serving copy's parameters (``stored_dtype``)."""
+    return sum(int(np.prod(d.shape)) * LM.stored_dtype(cfg, path[-1]).itemsize
+               for path, d in PR._leaves(LM.param_defs(cfg)))
+
+
+def layer_bytes(cfg) -> int:
+    """Bytes a layer adds to a serving copy."""
+    return (param_bytes(cfg.replace(n_layers=1))
+            - param_bytes(cfg.replace(n_layers=0)))
+
+
+def fit_depth(cfg, device, *, step: int = 8,
+              margin: float = MEM_MARGIN) -> tuple[int, int]:
+    """(``cfg.n_layers``, or the deepest multiple of ``step`` whose
+    serving copy fits the card's free memory with ``margin`` bytes to
+    spare; the free bytes)."""
+    free, _ = torch.cuda.mem_get_info(device)
+    base, per = param_bytes(cfg.replace(n_layers=0)), layer_bytes(cfg)
+    if base + cfg.n_layers * per + margin <= free:
+        return cfg.n_layers, free
+    depth = int((free - margin - base) // per) // step * step
+    if depth < step:
+        raise AssertionError(f"{cfg.name}: {free / 1e9:.1f} GB free, "
+                             f"{per / 1e9:.2f} GB a layer")
+    return depth, free
+
+
+def _tree_bytes(tree) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict) else
+               v.numel() * v.element_size() for v in tree.values())
+
+
+def _free(device) -> None:
+    """Collect unreachable cycles, then hand the card's cached blocks
+    back, so the next model's weights find the memory free."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+class ExpertDrops:
+    """While active, counts the expert assignments of every ``moe_ffn``
+    call and those past each expert's capacity C (sum over experts of
+    max(0, count - C), the assignments of rank >= C in order of arrival),
+    from the router's choices and apart from the dispatch code; calls of
+    ``batch`` tokens are decode steps, the others prefills.  Sums stay on
+    the device until ``shares`` reads them."""
+
+    def __init__(self, batch: int):
+        self.batch = batch
+        self.acc = {"prefill": [], "decode": []}
+
+    def __enter__(self) -> "ExpertDrops":
+        self.real = MOE._route
+        MOE._route = self._call
+        return self
+
+    def _call(self, cfg, xf, router):
+        top_p, top_i, aux = self.real(cfg, xf, router)
+        T = xf.shape[0]
+        counts = torch.bincount(top_i.reshape(-1), minlength=cfg.n_experts)
+        dropped = torch.clamp(counts - MOE._capacity(cfg, T), min=0).sum()
+        key = "decode" if T == self.batch else "prefill"
+        self.acc[key].append((top_i.numel(), dropped))
+        return top_p, top_i, aux
+
+    def __exit__(self, *exc) -> None:
+        MOE._route = self.real
+
+    def shares(self, n_layers: int) -> dict:
+        """Per kind: assignments, dropped, their share, and the share at
+        the first and at the last layer (a call walks the layers in
+        order)."""
+        out = {}
+        for key, v in self.acc.items():
+            d = [int(x) for _, x in v]
+            n = [m for m, _ in v]
+            out[key] = {"assigned": sum(n), "dropped": sum(d),
+                        "share": sum(d) / max(sum(n), 1),
+                        "first_layer": sum(d[::n_layers])
+                        / max(sum(n[::n_layers]), 1),
+                        "last_layer": sum(d[n_layers - 1::n_layers])
+                        / max(sum(n[n_layers - 1::n_layers]), 1)}
+        return out
+
+
+def host_drop_share(xf: torch.Tensor, router: torch.Tensor, cfg) -> float:
+    """The share of expert assignments past capacity when the router sees
+    the rows ``xf`` (T, d): top-k of the logits in f64 on the host, each
+    expert's count against C = max(ceil(T k cf / E), 4); written apart
+    from ``models/moe.py``."""
+    x = xf.double().cpu().numpy()
+    logits = x @ router.double().cpu().numpy()
+    T, E, k = x.shape[0], cfg.n_experts, cfg.moe_top_k
+    top = np.argsort(-logits, axis=1, kind="stable")[:, :k]
+    counts = np.bincount(top.reshape(-1), minlength=E)
+    C = max(int(np.ceil(T * k * cfg.capacity_factor / E)), 4)
+    return float(np.maximum(counts - C, 0).sum() / (T * k))
+
+
+class MoeLayer0:
+    """While active, keeps the tokens of the first prefill; ``read(eng)``
+    then rebuilds that prefill's layer 0 on the card from the engine's
+    parameters and reads what its router sees: the distinct documents in
+    the batch, the rms of the embedding and of the attention output that
+    is added to it, the cosine of the router inputs of neighbouring
+    positions and of positions S/2 apart, and the drop share recomputed
+    on the host (``host_drop_share``) for the router input itself, for
+    the embedding alone in its place, and for the distinct rows alone."""
+
+    def __enter__(self) -> "MoeLayer0":
+        self.tokens, self.real = None, LM.prefill
+
+        def prefill(cfg, params, batch, *a, **k):
+            if self.tokens is None:
+                self.tokens = batch["tokens"].clone()
+            return self.real(cfg, params, batch, *a, **k)
+        LM.prefill = prefill
+        return self
+
+    def __exit__(self, *exc) -> None:
+        LM.prefill = self.real
+
+    def read(self, eng, *, doc_len: int, docs_per_query: int) -> dict:
+        cfg, p, tok = eng.cfg, eng.params, self.tokens
+        B, S = tok.shape
+        d = cfg.d_model
+        blk = PR.layer(p["blocks"], 0)
+        with torch.inference_mode():
+            x0 = LY.embed(p, tok, PR.compute_dtype(cfg))
+            h, _ = TF._attn_block(cfg, blk, x0, int(TF.layer_windows(cfg)[0]),
+                                  mode="prefill")
+            xf = LY.rms_norm(h, blk["mlp_norm"], cfg.norm_eps)
+            xe = LY.rms_norm(x0, blk["mlp_norm"], cfg.norm_eps)
+
+            def rms(t):
+                return float(t.float().pow(2).mean().sqrt())
+
+            def cos(t, lag):
+                t = t.float()
+                return float(torch.nn.functional.cosine_similarity(
+                    t[:, lag:], t[:, :S - lag], dim=-1).abs().mean())
+            docs = tok[:, :doc_len * docs_per_query].reshape(-1, doc_len)
+            flat = xf.reshape(-1, d)
+            out = {"docs": int(torch.unique(docs, dim=0).shape[0]),
+                   "slots": int(docs.shape[0]),
+                   "rms_embed": rms(x0), "rms_attn": rms(h - x0),
+                   "cos_next": cos(xf, 1), "cos_half": cos(xf, S // 2),
+                   "cos_next_embed": cos(xe, 1),
+                   "cos_half_embed": cos(xe, S // 2),
+                   "share": host_drop_share(flat, blk["router"], cfg),
+                   "share_embed": host_drop_share(xe.reshape(-1, d),
+                                                  blk["router"], cfg)}
+            uniq = torch.unique(flat.float(), dim=0)
+            out["distinct_rows"] = int(uniq.shape[0])
+            out["share_distinct"] = host_drop_share(uniq, blk["router"], cfg)
+        return out
+
+
+def serve_family(ds, meta, store, device, cfg, *, log_, tag: str,
+                 doorbell: int, doc_len: int, prompt_len: int, batch: int,
+                 max_new_tokens: int, docs_per_query: int, n_calls: int,
+                 seed: int = SEED, first=(), after=None) -> list:
+    """``RagServeEngine.serve`` with ``cfg`` over phase 5's exact-scan
+    engine (the CUDA gather on), in phase 9's geometry: documents of
+    ``doc_len`` tokens drawn with numpy from the seed, ``batch`` prompts.
+    Each of ``n_calls`` calls is one path of ``log_`` (its gather calls
+    recorded for phase 4), the first inside the contexts ``first``; each
+    must make ``attention_layers(cfg) * max_new_tokens`` decode_attention
+    launches and, on the card, gather launches exactly when its retrieval
+    fetched (a later call can hit the cache for every span), and give
+    tokens in range, equal across calls.  ``after(eng)`` runs before the engine
+    is closed.  Returns (the tokens of each call, the launches summed
+    over the calls)."""
+    rng = np.random.default_rng(seed)
+    docs = DocStore(ds.data, rng.integers(0, cfg.vocab_size,
+                                          (len(ds.data), doc_len),
+                                          dtype=np.int32))
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
+                           dtype=np.int32)
+    retriever = DHNSWEngine(exact_config(meta.n_partitions, doorbell, "scan"),
+                            device=device).adopt_built(
+        meta, dataclasses.replace(store), ds.data)
+    t0 = time.perf_counter()
+    eng = RagServeEngine(cfg, retriever, docs, max_new_tokens=max_new_tokens,
+                         docs_per_query=docs_per_query, seed=seed,
+                         device=device)
+    _free(device)
+    heads = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.the_head_dim()}"
+             if cfg.n_heads else f"ssm state {cfg.ssm_state}")
+    log(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {heads}, vocab {cfg.vocab_size}: weights "
+        f"{_tree_bytes(eng.params) / 1e9:.2f} GB drawn on {device} in "
+        f"{time.perf_counter() - t0:.2f} s | {batch} prompts x {prompt_len}"
+        f" + {docs_per_query} docs x {doc_len}, {max_new_tokens} new tokens")
+    S = docs_per_query * doc_len + prompt_len
+    on_card = device.type == "cuda"
+    want = attention_layers(cfg) * max_new_tokens if on_card else 0
+    outs, launches = [], {name: 0 for name in KERNEL_OPS}
+    try:
+        for i in range(n_calls):
+            with contextlib.ExitStack() as stack:
+                for ctx in (first if i == 0 else ()):
+                    stack.enter_context(ctx)
+                with log_.path() as n:
+                    t0 = time.perf_counter()
+                    out, st = eng.serve(prompts)
+                    wall = time.perf_counter() - t0
+            fetched = st.retrieval["n_fetches"] > 0
+            if n["decode_attention"] != want or (
+                    on_card and (n["gather_blocks"] > 0) != fetched):
+                raise AssertionError(f"{tag} call {i}: launches {n} and "
+                                     f"{st.retrieval['n_fetches']} fetches,"
+                                     f" want {want} decode_attention and a "
+                                     f"gather launch iff a fetch")
+            if out.shape != (batch, max_new_tokens) or not (
+                    (out >= 0) & (out < cfg.vocab_size)).all():
+                raise AssertionError(f"{tag} call {i}: tokens out of range")
+            outs.append(out)
+            for name in launches:
+                launches[name] += n[name]
+            log(f"[{tag}] call {i}: wall {wall:.4f} s = retrieve "
+                f"{st.retrieve_s:.4f} s + prefill {st.prefill_s:.4f} s "
+                f"(S={S}) + decode {st.decode_s:.4f} s "
+                f"({batch * max_new_tokens / st.decode_s:.1f} tokens/s, "
+                f"{st.decode_s / max_new_tokens * 1e3:.3f} ms a step) | "
+                f"fetches {st.retrieval['n_fetches']} | launches {n}")
+        if any(not np.array_equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"{tag}: the calls generated different "
+                                 f"tokens")
+        if after is not None:
+            after(eng)
+    finally:
+        eng.close()
+    del eng, retriever
+    _free(device)
+    return outs, launches
+
+
+def phase_moe_serve(ds, meta, store, device, *, log_, capture, doorbell,
+                    **rag) -> None:
+    """Phase 15a: ``serve_family`` with qwen3-moe-30b-a3b at full width
+    (128 experts, top-8) and, memory allowing, full depth, two calls
+    with equal tokens; the first counts the expert assignments dropped at
+    capacity in prefill and in decode (``ExpertDrops``) and captures the
+    first decode_attention call for phase 4."""
+    cfg = get_config(MOE_ARCH)
+    depth, free = fit_depth(cfg, device)
+    cut = ("full depth" if depth == cfg.n_layers else
+           f"depth cut from {cfg.n_layers} to {depth} to fit beside the "
+           f"index")
+    log(f"[15a moe] {cfg.name}: {param_bytes(cfg.replace(n_layers=depth)) / 1e9:.2f}"
+        f" GB of parameters at {depth} layers ({cut}); "
+        f"{free / 1e9:.1f} GB free")
+    drops, layer0, seen = ExpertDrops(rag["batch"]), MoeLayer0(), {}
+    outs, launches = serve_family(
+        ds, meta, store, device, cfg.replace(n_layers=depth), log_=log_,
+        tag="15a moe", doorbell=doorbell, n_calls=2,
+        first=(capture, drops, layer0), after=lambda eng: seen.update(
+            layer0.read(eng, doc_len=rag["doc_len"],
+                        docs_per_query=rag["docs_per_query"])), **rag)
+    sh = drops.shares(depth)
+    log(f"[15a moe] 2 calls generated equal tokens; first sequence "
+        f"{outs[0][0][:8].tolist()}... | decode_attention launches "
+        f"{launches['decode_attention']} | expert assignments dropped at "
+        f"capacity (first call): "
+        + "; ".join(f"{k} {v['dropped']} of {v['assigned']} "
+                    f"({v['share']:.5f}; layer 0 {v['first_layer']:.5f}, "
+                    f"layer {depth - 1} {v['last_layer']:.5f})"
+                    for k, v in sh.items()))
+    r = seen
+    log(f"[15a moe layer 0] the first call's prefill: {r['docs']} distinct "
+        f"documents in its {r['slots']} slots, {r['distinct_rows']} distinct"
+        f" router input rows of {rag['batch'] * (rag['prompt_len'] + rag['doc_len'] * rag['docs_per_query'])}"
+        f" | rms: embedding {r['rms_embed']:.6f}, layer 0's attention "
+        f"output {r['rms_attn']:.6f} | router input |cosine| of neighbouring"
+        f" positions {r['cos_next']:.4f}, of positions S/2 apart "
+        f"{r['cos_half']:.4f} (embedding alone {r['cos_next_embed']:.4f}, "
+        f"{r['cos_half_embed']:.4f}) | dropped at capacity, recomputed on "
+        f"the host: {r['share']:.5f} (counted in the call "
+        f"{sh['prefill']['first_layer']:.5f}); with the embedding alone as "
+        f"the router input {r['share_embed']:.5f}; the distinct rows alone "
+        f"{r['share_distinct']:.5f}")
+
+
+def _pixtral_patches(eng, *, log_, n_steps: int, seed: int = SEED) -> None:
+    """pixtral's model-level prefill with ``n_patches`` patch embeddings
+    (seeded, on the card) prepended to the RAG geometry's 1024 tokens,
+    then ``n_steps`` greedy decode steps: finite logits, one
+    decode_attention launch a layer a step."""
+    cfg, dev = eng.cfg, eng.device
+    B, S = 8, 1024
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                     generator=gen),
+             "patches": torch.randn((B, cfg.n_patches, cfg.d_model),
+                                    device=dev, generator=gen)}
+    S_all = S + cfg.n_patches
+    with log_.path() as n, torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = LM.prefill(cfg, eng.params, batch, S_all + n_steps)
+        _free(dev)
+        pre = time.perf_counter() - t0
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        pos = torch.full((B,), S_all, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logits, cache = LM.decode_step(cfg, eng.params, cache, tok, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        _free(dev)
+        dec = time.perf_counter() - t0
+    want = cfg.n_layers * n_steps if dev.type == "cuda" else 0
+    if not torch.isfinite(logits).all() or n["decode_attention"] != want:
+        raise AssertionError(f"15b pixtral patches: launches {n}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    log(f"[15b vlm] {cfg.name} model-level prefill with {cfg.n_patches} "
+        f"patches + {S} tokens (S={S_all}, B={B}): {pre:.4f} s, "
+        f"{n_steps} decode steps {dec / n_steps * 1e3:.3f} ms a step | "
+        f"launches {n}")
+    del cache, logits
+
+
+def phase_whisper(device, *, log_, capture, arch: str, batch: int,
+                  prompt_len: int, max_new_tokens: int,
+                  seed: int = SEED) -> None:
+    """Phase 15b, encdec: whisper-tiny through ``model.prefill`` with frame
+    embeddings (B x enc_seq 1500, seeded on the card; the engine passes
+    none, as the reference's) and ``max_new_tokens`` greedy decode steps,
+    each decoder layer's self-attention through decode_attention."""
+    cfg = get_config(arch)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = PR.init_params(LM.param_defs(cfg), gen,
+                            cast=lambda n, t: t.to(LM.stored_dtype(cfg, n)))
+    batch_in = {"tokens": torch.randint(0, cfg.vocab_size,
+                                        (batch, prompt_len), device=device,
+                                        generator=gen),
+                "frames": torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                      device=device, generator=gen)}
+    with capture, log_.path() as n, torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = LM.prefill(cfg, params, batch_in,
+                                   prompt_len + max_new_tokens)
+        _free(device)
+        pre = time.perf_counter() - t0
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        pos = torch.full((batch,), prompt_len, dtype=torch.int32,
+                         device=device)
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(max_new_tokens):
+            out.append(tok)
+            logits, cache = LM.decode_step(cfg, params, cache, tok, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        _free(device)
+        dec = time.perf_counter() - t0
+    want = (attention_layers(cfg) * max_new_tokens
+            if device.type == "cuda" else 0)
+    if n["decode_attention"] != want or not torch.isfinite(logits).all():
+        raise AssertionError(f"15b whisper: launches {n}, want {want}")
+    log(f"[15b encdec] {cfg.name}: {cfg.n_enc_layers}+{cfg.n_layers} layers"
+        f", d {cfg.d_model}, enc_seq {cfg.enc_seq}, B={batch}: prefill "
+        f"{pre:.4f} s (S={prompt_len}), decode {dec:.4f} s "
+        f"({batch * max_new_tokens / dec:.1f} tokens/s, "
+        f"{dec / max_new_tokens * 1e3:.3f} ms a step) | first sequence "
+        f"{torch.stack(out, 1)[0, :8].tolist()}... | launches {n}")
+    del params, cache
+    _free(device)
+
+
+def phase_families_serve(ds, meta, store, device, *, log_, captures,
+                         doorbell, **rag) -> None:
+    """Phase 15b: one ``serve_family`` call each for the families beside
+    moe (``FAMILY_DEPTH``: full depth, or the printed cut), pixtral's
+    model-level prefill with patches, and whisper (``phase_whisper``)."""
+    for arch, depth in FAMILY_DEPTH.items():
+        cfg = get_config(arch)
+        if depth is not None:
+            log(f"[15b] {cfg.name}: depth cut from {cfg.n_layers} to "
+                f"{depth} ({layer_bytes(cfg) / 1e9:.2f} GB a layer)")
+            cfg = cfg.replace(n_layers=depth)
+        after = (lambda eng: _pixtral_patches(eng, log_=log_, n_steps=4)
+                 if cfg.family == "vlm" else None)
+        cap = captures.get(arch)
+        serve_family(ds, meta, store, device, cfg, log_=log_,
+                     tag=f"15b {cfg.family}", doorbell=doorbell, n_calls=1,
+                     first=(cap,) if cap else (), after=after, **rag)
+    phase_whisper(device, log_=log_, capture=captures[WHISPER["arch"]],
+                  **WHISPER)
+
+
+def _family_inputs(cfg, batch: int, seq: int, seed: int = SEED) -> dict:
+    """Seeded numpy inputs of a prefill (tokens; frames or patches)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq))}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def phase_card_vs_cpu(device, *, batch: int, seq: int, steps: int,
+                      n_layers: int) -> None:
+    """Phase 15c: each configuration of this slice at full width, cut to
+    ``n_layers`` layers (the hybrid to ``n_layers`` uses of its shared
+    block), in f32: weights drawn once on the card and copied to the CPU,
+    a prefill of ``batch`` x ``seq`` tokens and ``steps`` greedy decode
+    steps on both, fed the card's tokens.  The CPU path is the one the
+    tests hold against the JAX package; the card's runs cuBLAS (TF32 off)
+    and decode_attention.  Greedy tokens equal, logits within
+    ``CARD_CPU_TOL``.  Its launches are a comparison, not the main path:
+    the counts are set to 0 after it."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for f32 products")
+    cpu = torch.device("cpu")
+    for arch in CARD_CPU_ARCHS:
+        full = get_config(arch)
+        depth = n_layers * (full.attn_every if full.family == "hybrid" else 1)
+        cfg = full.replace(n_layers=depth, dtype="float32")
+        t0 = time.perf_counter()
+        params = PR.init_params(LM.param_defs(cfg), torch.Generator(
+            device=device).manual_seed(SEED))
+        host = _tree_to(params, cpu)
+        inputs = _family_inputs(cfg, batch, seq)
+        S_all = seq + (cfg.n_patches if cfg.family == "vlm" else 0)
+        errs, toks = [], []
+        with torch.inference_mode():
+            (la, ca), (lb, cb) = (
+                LM.prefill(cfg, p, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in inputs.items()},
+                           S_all + steps)
+                for dev, p in ((device, params), (cpu, host)))
+            la, lb = la[:, -1], lb[:, -1]
+            pos = torch.full((batch,), S_all, dtype=torch.int32)
+            for step in range(steps + 1):
+                a = la.cpu()
+                errs.append(float((a - lb).abs().max()))
+                if not torch.allclose(a, lb, **CARD_CPU_TOL):
+                    raise AssertionError(f"15c {arch} step {step}: card and "
+                                         f"CPU logits differ by "
+                                         f"{errs[-1]:.3g}")
+                ta, tb = a.argmax(-1), lb.argmax(-1)
+                if not torch.equal(ta, tb):
+                    raise AssertionError(f"15c {arch} step {step}: greedy "
+                                         f"tokens {ta.tolist()} on the card,"
+                                         f" {tb.tolist()} on the CPU")
+                toks.append(ta.tolist())
+                if step == steps:
+                    break
+                tok = ta.to(torch.int32)
+                la, ca = LM.decode_step(cfg, params, ca, tok.to(device),
+                                        pos.to(device))
+                lb, cb = LM.decode_step(cfg, host, cb, tok, pos)
+                pos = pos + 1
+            for a, b in zip(ca, cb):
+                if not torch.allclose(a.cpu(), b, **CARD_CPU_TOL):
+                    raise AssertionError(
+                        f"15c {arch}: caches differ by "
+                        f"{float((a.cpu() - b).abs().max()):.3g}")
+        log(f"[15c card vs cpu] {cfg.name} ({cfg.family}, {depth} layers, "
+            f"full width, f32): prefill B={batch} S={S_all} and {steps} "
+            f"decode steps; greedy tokens equal, first two steps {toks[:2]};"
+            f" max |card - cpu| of the logits by step "
+            f"{[f'{e:.3g}' for e in errs]}; caches within {CARD_CPU_TOL} | "
+            f"{time.perf_counter() - t0:.1f} s")
+        del params, host, la, lb, ca, cb
+        _free(device)
+    _reset_launches()
+
+
+def _tree_to(tree: dict, device) -> dict:
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+# ------------------------------------------------------ sharded store (16)
+
+# one rank of phase 16: argv = src dir, backend, world, rank, device, the
+# directory holding store.npz; writes <backend>_<device>_rank<rank>.npz
+SHARD_RANK = r"""
+import sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from repro_torch.core.distributed import ShardedStore
+from repro_torch.core.layout import LayoutSpec, Store
+_, _, backend, world, rank, dev, tmp, iters = sys.argv
+world, rank, iters = int(world), int(rank), int(iters)
+dist.init_process_group(backend, init_method=f"file://{tmp}/rdv_{backend}_{dev}",
+                        world_size=world, rank=rank)
+a = np.load(f"{tmp}/store.npz")
+store = Store(spec=LayoutSpec(**{k[5:]: int(a[k]) for k in a.files
+                                 if k.startswith("spec_")}),
+              graph_buf=a["graph_buf"], vec_buf=a["vec_buf"],
+              meta_table=a["meta_table"], n_base=a["n_base"])
+ss = ShardedStore(store, device=dev)
+calls = []
+real = dist.all_reduce
+dist.all_reduce = lambda *x, **k: calls.append(1) or real(*x, **k)
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+g, v = ss.fetch(a["ids"])
+sync()
+dist.barrier()
+t0 = time.perf_counter()
+for _ in range(iters):
+    ss.fetch(a["ids"])
+sync()
+ms = (time.perf_counter() - t0) / iters * 1e3
+np.savez(f"{tmp}/{backend}_{dev}_rank{rank}.npz", g=g.cpu().numpy(),
+         v=v.cpu().numpy(), ms=ms, calls=len(calls) / (iters + 1),
+         bytes=ss.stats["operand_bytes"] / ss.stats["fetches"],
+         per_shard=ss.per_shard, device=str(ss.graph_buf.device))
+dist.destroy_process_group()
+"""
+
+
+def _run_ranks(tmp: str, backend: str, world: int, dev: str,
+               iters: int) -> list:
+    """Run ``world`` ranks of ``SHARD_RANK``; their result files.  A rank
+    that exits without its file fails the phase."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_RANK, str(ROOT / "src"), backend,
+         str(world), str(r), dev, tmp, str(iters)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        path = Path(tmp) / f"{backend}_{dev}_rank{r}.npz"
+        if not path.exists():
+            raise AssertionError(f"16 {backend} rank {r} exited "
+                                 f"{p.returncode}: {err[-2000:]}")
+        out.append(dict(np.load(path)))
+    return out
+
+
+def phase_sharded_store(store, ids, device, *, world: int,
+                        iters: int) -> None:
+    """Phase 16: ``core.distributed.ShardedStore`` over phase 3's store,
+    fetching ``ids`` (phase 5's first round of spans): ``world`` ranks,
+    each its own process on the one card, in a gloo group over CUDA
+    tensors (NCCL puts no two ranks on one device), then one rank in an
+    NCCL group (on the CPU: the gloo ranks alone, over CPU tensors).
+    Every rank's fetch must be bit-equal to ``store.graph_buf[ids]`` and
+    ``store.vec_buf[ids]``, with one collective a fetch; a rank that
+    raises fails the phase (nothing reruns on CPU tensors)."""
+    want_g = store.graph_buf[ids]
+    want_v = store.vec_buf[ids].view(np.int32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ss_") as tmp:
+        np.savez(f"{tmp}/store.npz", graph_buf=store.graph_buf,
+                 vec_buf=store.vec_buf, meta_table=store.meta_table,
+                 n_base=store.n_base, ids=ids,
+                 **{f"spec_{f}": int(getattr(store.spec, f))
+                    for f in SPEC_FIELDS})
+        on_card = device.type == "cuda"
+        for backend, n in (("gloo", world), ("nccl", 1))[:1 + on_card]:
+            t0 = time.perf_counter()
+            res = _run_ranks(tmp, backend, n, device.type, iters)
+            for r, got in enumerate(res):
+                if not (np.array_equal(got["g"], want_g) and np.array_equal(
+                        got["v"].view(np.int32), want_v)):
+                    raise AssertionError(f"16 {backend} rank {r}: fetch not "
+                                         f"bit-equal to the store's rows")
+                if float(got["calls"]) != 1.0:
+                    raise AssertionError(f"16 {backend} rank {r}: "
+                                         f"{got['calls']} collectives a fetch")
+            ms = [float(r["ms"]) for r in res]
+            log(f"[16 sharded store] {backend}, {n} rank(s) on "
+                f"{res[0]['device']}: {len(ids)} blocks a fetch "
+                f"({float(res[0]['bytes']) / 1e6:.3f} MB all-reduce operand, "
+                f"{int(res[0]['per_shard'])} blocks a shard), one "
+                f"collective a fetch, bit-equal to the store's rows on every"
+                f" rank | ms a fetch (host clock, {iters} fetches, each rank)"
+                f" {[f'{m:.4f}' for m in ms]} | {time.perf_counter() - t0:.1f}"
+                f" s with the ranks' start")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -3023,6 +3683,24 @@ def main(argv=None) -> int:
         doorbell=FULL["doorbell"], **RAG)
     launches["gather_blocks"] += rag_launches["gather_blocks"]
     launches["decode_attention"] = rag_launches["decode_attention"]
+    # the other LM families next, while the host is not yet loaded by the
+    # pool phases' servers and threads (their decode is host-bound too)
+    fams = PathLog(device)
+    t15 = time.perf_counter()
+    captures = {arch: FirstCall(DA, "decode_attention") for arch in (
+        MOE_ARCH, "llama4-scout-17b-a16e", "zamba2-2.7b", WHISPER["arch"])}
+    phase_moe_serve(ds, meta, store, device, log_=fams,
+                    capture=captures[MOE_ARCH], doorbell=FULL["doorbell"],
+                    **RAG_GEOM)
+    phase_families_serve(ds, meta, store, device, log_=fams,
+                         captures=captures, doorbell=FULL["doorbell"],
+                         **RAG_GEOM)
+    log(f"[15a-b] {time.perf_counter() - t15:.1f} s")
+    t15 = time.perf_counter()
+    phase_card_vs_cpu(device, **CARD_CPU)
+    log(f"[15c] {time.perf_counter() - t15:.1f} s")
+    phase_sharded_store(store, gathers[0][0].cpu().numpy(), device,
+                        **SHARD_STORE)
     ins_launches, ins_recorded, ins_bufs = phase_insert(
         ds, meta, store, qstore, device, k=FULL["k"],
         doorbell=FULL["doorbell"], scan_recall=scan_stats["recall_at_k"])
@@ -3049,10 +3727,11 @@ def main(argv=None) -> int:
     phase_remote_bench(device, pools)
     log(f"[14] {time.perf_counter() - t14:.1f} s")
     pool_bufs = {}
-    pool_recorded = recorded_launches(pools.calls, pool_bufs, "pool.")
+    pool_recorded = recorded_launches(fams.calls + pools.calls, pool_bufs,
+                                      "pool.")
     for name in launches:
         launches[name] += (ins_launches[name] + load_launches[name]
-                           + pools.launches[name])
+                           + fams.launches[name] + pools.launches[name])
     planned = gather_launches(gathers, pair_gathers, rag_gathers,
                               ins_recorded + load_recorded + pool_recorded)
     if launches["gather_blocks"] != len(planned):
@@ -3060,9 +3739,14 @@ def main(argv=None) -> int:
                              f"the main path, {len(planned)} span reads "
                              f"planned (one launch each)")
     q, k, v, pos = first
+    if any(cap.args is None for cap in captures.values()):
+        raise AssertionError("a family's decode made no decode_attention "
+                             "call")
     records = phase_kernels(store, qstore, ds.data, ds.queries, planned,
                             device, decode_shapes=[
                                 ("path", q, k, v, pos),
+                                *[(arch, *cap.args)
+                                  for arch, cap in captures.items()],
                                 ("long", *long_decode_inputs(
                                     **DECODE_LONG, H=q.shape[1],
                                     K=k.shape[2], hd=q.shape[2],

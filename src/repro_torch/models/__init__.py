@@ -1,2 +1,3 @@
 """The LM substrate of the port, forward only: parameters, layers, the
-blocked flash forward, the dense transformer and the family dispatcher."""
+blocked flash forward, the six families (dense, moe and vlm on the
+transformer; ssm, hybrid, encdec) and the family dispatcher."""

@@ -153,7 +153,23 @@ def swiglu(x, wg, wu, wd):
     return h @ wd
 
 
-# ----------------------------------------------------------------- logits
+def gelu_mlp(x, w1, w2):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ w1, approximate="tanh") @ w2
+
+
+# ------------------------------------------------------ embedding, logits
+
+
+def embed(params, tokens, dt):
+    """Token embeddings in ``dt``: gather then cast, the same numbers as
+    the reference's cast then gather without a copy of the whole table."""
+    return params["embed"][tokens].to(dt)
+
+
+def unembed(params, x):
+    """Logits in f32 from the final hidden states ``x``."""
+    return (x @ params["unembed"].to(x.dtype)).float()
 
 
 def softcap_logits(logits, cap: float):

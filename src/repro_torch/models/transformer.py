@@ -1,6 +1,7 @@
-"""Dense decoder-only transformer, forward only, on torch.
+"""Decoder-only transformer, forward only, on torch: the ``dense`` family
+and the backbone of ``moe`` and ``vlm``.
 
-Port of ``repro/models/transformer.py`` for the ``dense`` family.  The
+Port of ``repro/models/transformer.py``.  The
 reference stacks layers on a leading L axis and drives them with
 ``lax.scan``; here the stacked tensors stay as they are and a Python loop
 indexes layer ``l`` (a view, no copy).  Per-layer sliding windows
@@ -14,8 +15,12 @@ not, and the returned cache is the same tensors).
 Decode attention: a layer with no sliding window and no score softcap
 goes through the hand-written kernel ``kernels/decode_attention``; the
 others (gemma2's) through the plain ``layers.attend_decode``, as in the
-reference.  The ``moe`` and ``vlm`` variants of this module are not
-ported yet and raise.
+reference.
+
+``moe`` swaps each layer's SwiGLU for ``models/moe.py``'s expert FFN (plus
+llama4's always-on shared expert) and ``forward`` returns the mean of the
+layers' load-balance losses; ``vlm`` prepends ``patches @ patch_proj`` to
+the token embeddings when the batch carries patches.
 """
 from __future__ import annotations
 
@@ -25,16 +30,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as DA
 from repro_torch.models import layers as L
-from repro_torch.models.params import ParamDef, seq_shard, shard_heads
-
-NOT_PORTED = "not ported yet (ROADMAP queue 1, item 10)"
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.params import (ParamDef, compute_dtype, layer,
+                                       seq_shard, shard_heads, zeros_of)
 
 # ------------------------------------------------------------------ defs
 
 
 def block_param_defs(cfg: ModelConfig, n_layers: int, stacked: bool = True):
-    if cfg.family == "moe":
-        raise NotImplementedError(f"the moe family is {NOT_PORTED}")
     d, hd = cfg.d_model, cfg.the_head_dim()
     H, K = cfg.n_heads, cfg.n_kv_heads
     Lx = (n_layers,) if stacked else ()
@@ -46,27 +49,38 @@ def block_param_defs(cfg: ModelConfig, n_layers: int, stacked: bool = True):
         "wv": ParamDef(Lx + (d, K * hd), st + ("fsdp", "tp")),
         "wo": ParamDef(Lx + (H * hd, d), st + ("tp", "fsdp")),
         "mlp_norm": ParamDef(Lx + (d,), st + (None,), init="zeros"),
-        "wg": ParamDef(Lx + (d, cfg.d_ff), st + ("fsdp", "tp")),
-        "wu": ParamDef(Lx + (d, cfg.d_ff), st + ("fsdp", "tp")),
-        "wd": ParamDef(Lx + (cfg.d_ff, d), st + ("tp", "fsdp")),
     }
     if cfg.qk_norm:
         defs["q_norm"] = ParamDef(Lx + (hd,), st + (None,), init="zeros")
         defs["k_norm"] = ParamDef(Lx + (hd,), st + (None,), init="zeros")
+    if cfg.family == "moe":
+        defs.update(moe_lib.moe_param_defs(cfg, Lx, st))
+        if cfg.shared_expert:
+            defs.update({
+                "se_wg": ParamDef(Lx + (d, cfg.d_ff), st + ("fsdp", "tp")),
+                "se_wu": ParamDef(Lx + (d, cfg.d_ff), st + ("fsdp", "tp")),
+                "se_wd": ParamDef(Lx + (cfg.d_ff, d), st + ("tp", "fsdp")),
+            })
+    else:
+        defs.update({
+            "wg": ParamDef(Lx + (d, cfg.d_ff), st + ("fsdp", "tp")),
+            "wu": ParamDef(Lx + (d, cfg.d_ff), st + ("fsdp", "tp")),
+            "wd": ParamDef(Lx + (cfg.d_ff, d), st + ("tp", "fsdp")),
+        })
     return defs
 
 
 def param_defs(cfg: ModelConfig):
-    if cfg.family == "vlm":
-        raise NotImplementedError(f"the vlm family (patch_proj) is "
-                                  f"{NOT_PORTED}")
     d = cfg.d_model
-    return {
+    defs = {
         "embed": ParamDef((cfg.vocab_size, d), ("tp", "fsdp"), scale=1.0),
         "blocks": block_param_defs(cfg, cfg.n_layers),
         "final_norm": ParamDef((d,), (None,), init="zeros"),
         "unembed": ParamDef((d, cfg.vocab_size), ("fsdp", "tp")),
     }
+    if cfg.family == "vlm":
+        defs["patch_proj"] = ParamDef((d, d), ("fsdp", "tp"))
+    return defs
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -76,15 +90,6 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
         w[::2] = cfg.local_window  # even layers local, odd global (gemma2)
         return w
     return np.full(cfg.n_layers, cfg.local_window, np.int32)
-
-
-def _dtype(cfg: ModelConfig) -> torch.dtype:
-    return getattr(torch, cfg.dtype)
-
-
-def _layer(blocks: dict, l: int) -> dict:
-    """Layer ``l``'s parameters: views into the stacked tensors."""
-    return {name: t[l] for name, t in blocks.items()}
 
 
 # ------------------------------------------------------------------ blocks
@@ -136,54 +141,69 @@ def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
 def _mlp_block(cfg: ModelConfig, p, x):
     dt = x.dtype
     h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    y = L.swiglu(h, p["wg"].to(dt), p["wu"].to(dt), p["wd"].to(dt))
-    return x + y
+    aux = 0.0                # no tensor (and no launch) unless moe
+    if cfg.family == "moe":
+        y, aux = moe_lib.moe_ffn(cfg, p, h)
+        if cfg.shared_expert:
+            y = y + L.swiglu(h, p["se_wg"].to(dt), p["se_wu"].to(dt),
+                             p["se_wd"].to(dt))
+    else:
+        y = L.swiglu(h, p["wg"].to(dt), p["wu"].to(dt), p["wd"].to(dt))
+    return x + y, aux
 
 
 def block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
           pos=None):
+    """-> (x, new cache, the layer's moe aux loss (0 unless moe))."""
     x, new_cache = _attn_block(cfg, p, x, window, mode=mode, cache=cache,
                                pos=pos)
-    return _mlp_block(cfg, p, x), new_cache
+    x, aux = _mlp_block(cfg, p, x)
+    return x, new_cache, aux
 
 
 # ------------------------------------------------------------------ model
 
 
-def embed_tokens(cfg, params, tokens):
-    # gather then cast: the same numbers as the reference's cast then
-    # gather, without a bf16 copy of the whole table
-    return params["embed"][tokens].to(_dtype(cfg))
+def embed_tokens(cfg, params, tokens, patches=None):
+    dt = compute_dtype(cfg)
+    x = L.embed(params, tokens, dt)
+    if cfg.family == "vlm" and patches is not None:
+        pe = patches.to(dt) @ params["patch_proj"].to(dt)
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def _logits(cfg, params, x):
-    logits = x @ params["unembed"].to(x.dtype)
-    return L.softcap_logits(logits.float(), cfg.logit_softcap)
+    return L.softcap_logits(L.unembed(params, x), cfg.logit_softcap)
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """Full-sequence forward -> (logits (B, S, V) f32, moe aux loss).  The
-    aux loss is 0 for the dense family.  Forward only: no remat, and the
-    reference's ``return_hidden`` (for the training loss) comes with
-    training."""
-    x = seq_shard(embed_tokens(cfg, params, tokens))
+def forward(cfg: ModelConfig, params, tokens, *, patches=None):
+    """Full-sequence forward -> (logits (B, S_total, V) f32, moe aux loss:
+    the mean over layers, 0 unless moe).  S_total counts the prepended
+    patches (vlm).  Forward only: no remat, and the reference's
+    ``return_hidden`` (for the training loss) comes with training."""
+    x = seq_shard(embed_tokens(cfg, params, tokens, patches))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, w in enumerate(layer_windows(cfg)):
-        x, _ = block(cfg, _layer(params["blocks"], l), x, int(w),
-                     mode="train")
+        x, _, a = block(cfg, layer(params["blocks"], l), x, int(w),
+                        mode="train")
+        aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+    return _logits(cfg, params, x), aux / max(cfg.n_layers, 1)
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache_len: int):
+def prefill(cfg: ModelConfig, params, tokens, cache_len: int, *,
+            patches=None):
     """Prefill: returns (last-token logits (B, 1, V) f32, KV cache (k, v),
-    each (L, B, cache_len, K, hd) with zeros past the prompt)."""
-    x = embed_tokens(cfg, params, tokens)
-    B, S = tokens.shape
-    k_all, v_all = (torch.zeros(s.shape, dtype=s.dtype, device=x.device)
-                    for s in init_cache_abstract(cfg, B, cache_len))
+    each (L, B, cache_len, K, hd) with zeros past the prompt, the
+    prepended patches included)."""
+    x = embed_tokens(cfg, params, tokens, patches)
+    B, S = x.shape[:2]
+    k_all, v_all = zeros_of(init_cache_abstract(cfg, B, cache_len),
+                            x.device)
     for l, w in enumerate(layer_windows(cfg)):
-        x, (k, v) = block(cfg, _layer(params["blocks"], l), x, int(w),
-                          mode="prefill")
+        x, (k, v), _ = block(cfg, layer(params["blocks"], l), x, int(w),
+                             mode="prefill")
         k_all[l, :, :S] = k
         v_all[l, :, :S] = v
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -197,8 +217,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     x = embed_tokens(cfg, params, tokens[:, None])
     k_all, v_all = cache
     for l, w in enumerate(layer_windows(cfg)):
-        x, _ = block(cfg, _layer(params["blocks"], l), x, int(w),
-                     mode="decode", cache=(k_all[l], v_all[l]), pos=pos)
+        x, _, _ = block(cfg, layer(params["blocks"], l), x, int(w),
+                        mode="decode", cache=(k_all[l], v_all[l]), pos=pos)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x[:, 0]), cache
 
@@ -208,6 +228,6 @@ def init_cache_abstract(cfg: ModelConfig, batch: int, cache_len: int):
     no storage (the reference's ``ShapeDtypeStruct``s)."""
     hd = cfg.the_head_dim()
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, hd)
-    dt = _dtype(cfg)
+    dt = compute_dtype(cfg)
     return (torch.empty(shape, dtype=dt, device="meta"),
             torch.empty(shape, dtype=dt, device="meta"))

@@ -6,8 +6,9 @@ retrieval tier for LLM/RAG serving (§1); this engine is that
 integration: a request batch is embedded, the d-HNSW engine retrieves
 top-k document vectors (meta-HNSW routing in the compute pool, doorbell
 fetches from the memory pool), and the retrieved documents' tokens are
-prepended to each prompt before a prefill + greedy decode (the dense
-family; see ``models/model.py``).
+prepended to each prompt before a prefill + greedy decode (any family
+but ``encdec``, whose prefill needs frames the engine does not pass, as
+in the reference; see ``models/model.py``).
 
 Embedding is the LM's own token-embedding mean (standard cheap query
 encoder for tests/examples; any encoder slots in via ``embed_fn``).
@@ -82,7 +83,7 @@ class RagServeEngine:
         self.params = init_params(
             M.param_defs(cfg), gen,
             cast=lambda name, t: t.to(M.stored_dtype(cfg, name)))
-        self._embed = embed_fn or self._default_embed
+        self._embed_fn = embed_fn
 
     def close(self):
         """Stop the private batcher thread (no-op for an adopted server)."""
@@ -94,6 +95,12 @@ class RagServeEngine:
 
     def __exit__(self, *exc):
         self.close()
+
+    def _embed(self, tokens: np.ndarray) -> np.ndarray:
+        # a method, not a bound method kept on the instance: that would be
+        # a reference cycle, and the weights would outlive the last
+        # reference until the garbage collector ran
+        return (self._embed_fn or self._default_embed)(tokens)
 
     def _default_embed(self, tokens: np.ndarray) -> np.ndarray:
         emb = self.params["embed"]  # f32, on the device

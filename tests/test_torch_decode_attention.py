@@ -223,6 +223,10 @@ def _cuda():
     (4, 700, 8, 4, 128, [1, 64, 65, 700]),  # ragged pos, tile edges
     (4, 700, 8, 4, 128, [127, 128, 129, 385]),  # around split edges
     (3, 333, 32, 1, 96, [333, 100, 7]),     # phi3-mini: hd 96, G 1
+    (8, 1056, 4, 8, 128, [1025] * 8),      # qwen3-moe: G 8
+    (8, 1056, 8, 5, 128, [1025, 3, 700, 1056, 64, 65, 1, 2]),  # llama4: G 5
+    (8, 1056, 32, 1, 80, [1025] * 8),      # zamba2's shared block: hd 80
+    (8, 96, 6, 1, 64, [65, 96, 1, 30, 64, 63, 2, 9]),  # whisper: hd 64
     (2, 130, 2, 16, 256, [130, 129]),
     (2, 64, 1, 3, 8, [64, 33])])
 def test_decode_attention_kernel_on_card(B, S, K, G, hd, pos, dtype):

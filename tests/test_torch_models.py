@@ -255,7 +255,7 @@ def test_windowed_and_softcapped_layers_decode_plain(jx, monkeypatch):
 
 # ------------------------------------------------------------ params
 
-@pytest.mark.parametrize("arch", ARCHS + ["gemma2-27b", "codeqwen1.5-7b"])
+@pytest.mark.parametrize("arch", R.ARCH_IDS)
 def test_param_defs_and_counts_match_reference(jx, arch):
     for cfg_fn in ("get_config", "smoke_config"):
         jcfg = getattr(jx.R, cfg_fn)(arch)
@@ -273,6 +273,7 @@ def test_param_defs_and_counts_match_reference(jx, arch):
         assert P.count_params(defs) == jx.count_params(jdefs)
     jc = jx.M.init_cache_abstract(jcfg, 3, 40)
     tc = M.init_cache_abstract(cfg, 3, 40)
+    assert len(tc) == len(jc)
     for got, want in zip(tc, jc):
         assert got.device.type == "meta"
         assert tuple(got.shape) == want.shape
@@ -300,9 +301,31 @@ def test_init_params_draws_the_reference_std_in_stored_dtypes():
                - 1.0 / np.sqrt(512)) < 2e-3
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
-                                  "mamba2-370m", "zamba2-2.7b",
-                                  "whisper-tiny", "pixtral-12b"])
-def test_families_outside_the_slice_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        M.param_defs(R.smoke_config(arch))
+def test_init_params_draws_large_leaves_in_slices(monkeypatch):
+    """A leaf past ``SLICE_ELEMS`` is drawn one axis-0 slice at a time, each
+    cast to its stored dtype at once: same std, the stored dtype, the same
+    values from the same seed."""
+    monkeypatch.setattr(P, "SLICE_ELEMS", 3 * 64 * 128)
+    cfg = R.smoke_config("qwen3-moe-30b-a3b").replace(n_layers=8,
+                                                      n_experts=16)
+    casts = []
+
+    def cast(name, t):
+        casts.append((name, tuple(t.shape), t.dtype))
+        return t.to(M.stored_dtype(cfg, name))
+
+    p = P.init_params(M.param_defs(cfg), torch.Generator().manual_seed(0),
+                      cast=cast)
+    again = P.init_params(M.param_defs(cfg), torch.Generator().manual_seed(0),
+                          cast=lambda n, t: t.to(M.stored_dtype(cfg, n)))
+    we = p["blocks"]["we_g"]                     # (8, 16, 64, 64)
+    assert we.dtype == torch.bfloat16 and we.shape == (8, 16, 64, 64)
+    assert [c for c in casts if c[0] == "we_g"] == [
+        ("we_g", (1, 16, 64, 64), torch.float32)] * 8
+    assert torch.equal(we, again["blocks"]["we_g"])
+    assert abs(float(we.float().std()) - 1.0 / np.sqrt(64)) < 2e-3
+    assert not torch.equal(we[0], we[1])
+    assert p["blocks"]["router"].dtype == torch.float32
+    assert p["embed"].dtype == torch.float32   # 256 x 64: one draw
+    assert [c for c in casts if c[0] == "embed"] == [
+        ("embed", (256, 64), torch.float32)]

@@ -74,7 +74,9 @@ def test_deterministic_generation(rag):
 
 # ------------------------------------------------- against the reference
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "phi3-mini-3.8b",
+                                  "qwen3-moe-30b-a3b", "mamba2-370m",
+                                  "zamba2-2.7b"])
 def test_rag_serve_matches_reference(arch):
     pytest.importorskip("jax")
     import jax
@@ -112,6 +114,28 @@ def test_rag_serve_matches_reference(arch):
             _, tids, _ = te.server.search(q, k=3)
             _, jids, _ = je.server.search(q, k=3)
             np.testing.assert_array_equal(tids, jids)
+
+
+def test_rag_serve_of_encdec_raises_as_the_reference():
+    """The engine passes no frames, and an encdec prefill needs them: both
+    packages raise ``KeyError`` after the retrieval."""
+    pytest.importorskip("jax")
+    from repro.core import DHNSWEngine as JEngine
+    from repro.core import EngineConfig as JConfig
+    from repro.serve.engine import RagServeEngine as JRag
+
+    cfg = smoke_config("whisper-tiny").replace(dtype="float32")
+    docs = synthetic_doc_store(300, 32, doc_len=4, vocab=cfg.vocab_size)
+    prompts = np.zeros((2, 5), np.int32)
+    with JRag(cfg, JEngine(JConfig(**RET)).build(docs.embeddings), docs,
+              max_new_tokens=2) as je:
+        with pytest.raises(KeyError, match="frames"):
+            je.serve(prompts)
+    with RagServeEngine(cfg, DHNSWEngine(EngineConfig(**RET), device="cpu")
+                        .build(docs.embeddings), docs, max_new_tokens=2,
+                        device="cpu") as te:
+        with pytest.raises(KeyError, match="frames"):
+            te.serve(prompts)
 
 
 def test_rag_serve_needs_a_card_unless_asked_for_the_cpu(rag):
