@@ -113,11 +113,26 @@ Phases, each printing its own lines:
 16. ``core.distributed.ShardedStore`` over phase 3's store, fetching
     phase 5's first round of spans: 4 gloo ranks (processes) on the one
     card over CUDA tensors, then 1 NCCL rank, each fetch one all-reduce,
-    bit-equal to the store's rows.
+    bit-equal to the store's rows;
+17. training: (a) ``train_step.make_train_step`` on ``qwen3-8b`` at full
+    width cut to 4 layers (f32 masters, grads and AdamW moments: 32.3
+    GB), ``train_4k``'s S = 4096, a global batch of 8 in 2 micro-steps,
+    one warm-up and 4 timed steps on seeded ``token_stream`` batches:
+    the loss, grad norm and lr of each step, s a step, tokens/s, model
+    FLOPs over the bf16 peak, peak memory; the first loss within 1.0 of
+    ln V; (b) the six families' smoke configs in f32, two steps each
+    (one with ``micro_steps = 2``) on the card and on the CPU from the
+    same weights, equal at the CPU tests' tolerance; (c) the twin of
+    ``test_loss_decreases`` through ``trainer.fit``; (d) (b)'s state
+    through a checkpoint, and ``run_with_restarts`` with two injected
+    failures against an uninterrupted run; (e)
+    ``compressed_grad_reduce`` over 4 gloo ranks and 1 NCCL rank within
+    5 % of the f32 mean.
 
-Phases 15 and 16 run right after phase 9 (the LM phases together, on a
-host not yet loaded by the pool phases' servers and threads), phases
-10-14 after them.
+Phases 15-17 run right after phase 9 (the LM phases together, on a
+host not yet loaded by the pool phases' servers and threads; 17 once
+15's weights are freed), phases 10-14 after them.  The training path
+launches none of the four kernels: phase 17a reads every count at 0.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
 planned from the engine's embedding of the prompts, and the launches of
@@ -190,8 +205,10 @@ from repro_torch.core import scheduler as SCH  # noqa: E402
 from repro_torch.core import search as S  # noqa: E402
 from repro_torch.core.cost_model import RDMA_100G  # noqa: E402
 from repro_torch.core.hnsw import HNSWParams, recall_at_k  # noqa: E402
-from repro_torch.data.synthetic import sift_like  # noqa: E402
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.data.synthetic import sift_like, token_stream  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
+from repro_torch import tree as TREE  # noqa: E402
 from repro_torch.convert import SPEC_FIELDS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DA  # noqa: E402
@@ -204,6 +221,7 @@ from repro_torch.kernels.gather_blocks.ref import gather_blocks_ref  # noqa: E40
 from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
     dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
+from repro_torch.models import flash as FL  # noqa: E402
 from repro_torch.models import layers as LY  # noqa: E402
 from repro_torch.models import model as LM  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -218,10 +236,15 @@ from repro_torch.pool.sharded import ShardedPool  # noqa: E402
 from repro_torch.quant.codec import quantize_groups  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     DECODE_SPAN, DocStore, RagServeEngine)
+from repro_torch.train import adamw as ADAMW  # noqa: E402
+from repro_torch.train import checkpoint as CKPT  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
+from repro_torch.train.trainer import fit, run_with_restarts  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA datasheet), at 700 W
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS_S = 67e12
+PEAK_BF16_FLOPS_S = 989e12      # dense tensor-core bf16
 
 # the paper's SIFT1M run is 1M x 128-d with 500 partitions; the host-side
 # index build (pure-Python HNSW, phase 3) takes 44-72 s at 100k on the
@@ -233,6 +256,11 @@ REDUCED = {"n": [1_000_000, 100_000], "n_rep": [500, 256],
                              "one layer's K/V and the plain version's f32 "
                              "copies of them on the card",
            "durable_n": [100_000, 8000],
+           "train_n_layers": [36, 4], "train_global_batch": [256, 8],
+           "train_why": "f32 masters, gradients and AdamW moments of "
+                        "qwen3-8b take 131 GB at 36 layers, 32.3 GB at 4; "
+                        "a step of 256 x 4096 tokens at 4 layers is over "
+                        "a minute of the script's limit",
            "durable_why": "a write-ahead log record is bounded at 64 MiB "
                           "(ingest/wal.py MAX_BODY, as the reference's): "
                           "the ATTACH record of the 100k region (285 MB) "
@@ -280,6 +308,22 @@ CARD_CPU = dict(batch=2, seq=64, steps=4, n_layers=2)
 CARD_CPU_TOL = dict(atol=1e-3, rtol=1e-3)
 # phase 16: ShardedStore over 4 gloo ranks on the one card, and 1 NCCL rank
 SHARD_STORE = dict(world=4, iters=20)
+# phase 17: training.  (a) qwen3-8b at full width, 4 layers, train_4k's
+# length, a global batch of 8 in 2 micro-steps, one warm-up step and 4
+# timed; (b)-(d) the smoke configs of the six families in f32 at the CPU
+# tests' size and tolerances (tests/lm_parity.py: 1e-5 of a leaf's
+# largest magnitude for m and sqrt(v), which scales like the gradient,
+# or 1e-3 of the learning rates applied for a param);
+# (e) compressed_grad_reduce within 5 % of the f32 mean's largest value
+# (tests/test_distributed.py's bound)
+TRAIN_ARCH = "qwen3-8b"
+TRAIN = dict(n_layers=4, seq=4096, batch=8, micro_steps=2, steps=4)
+TRAIN_FAMILIES = ("qwen3-8b", "qwen3-moe-30b-a3b", "pixtral-12b",
+                  "mamba2-370m", "zamba2-2.7b", "whisper-tiny")
+TRAIN_SMOKE = dict(batch=4, seq=32)
+F32_TRAIN, ADAM_STEP_TOL = 1e-5, 1e-3
+COMPRESS = dict(world=4, shapes=((4096, 1024), (151_936,), (8, 128)))
+COMPRESS_TOL = 0.05
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
 # they differ by at most one step of each element); in f32 at the gpu
@@ -3647,6 +3691,416 @@ def phase_sharded_store(store, ids, device, *, world: int,
                 f" s with the ranks' start")
 
 
+# ------------------------------------------------------------ training (17)
+
+def _train_batch(cfg, seed: int, *, batch: int, seq: int) -> dict:
+    """Seeded numpy inputs of a train step (the CPU tests' kind): tokens,
+    labels (three ``ignore_id``), frames or patches."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
+               np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
+               np.int32)}
+    out["labels"][0, :3] = -1
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _on(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+class UpdateClock:
+    """While active, the host seconds of every ``adamw.update`` call
+    (synchronized before and after on the card): the optimizer's share
+    of a step."""
+
+    def __init__(self, device):
+        self.device, self.s = device, []
+
+    def __enter__(self):
+        self.real = ADAMW.update
+
+        def timed(*a, **k):
+            _sync(self.device)
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            _sync(self.device)
+            self.s.append(time.perf_counter() - t0)
+            return out
+        ADAMW.update = timed
+        return self
+
+    def __exit__(self, *exc):
+        ADAMW.update = self.real
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_split(cfg, device, *, batch: int, seq: int,
+                micro_steps: int) -> dict:
+    """Seconds a step of 17a spends in the flash attention (each layer of
+    each micro-step: the forward, its recompute and the backward) and in
+    the chunked CE (its forward, each chunk's recompute and the
+    backward), each timed alone at the step's shapes (CUDA events, after
+    a warm-up)."""
+    dt = PR.compute_dtype(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    B = batch // micro_steps
+
+    def rand(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device=device).to(
+            dtype).requires_grad_()
+    hd, H, K = cfg.the_head_dim(), cfg.n_heads, cfg.n_kv_heads
+    q, k, v = rand(B, seq, H, hd), rand(B, seq, K, hd), rand(B, seq, K, hd)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dt)
+
+    def fwd():
+        FL.flash_attention(q, k, v)
+
+    def fwd_bwd():
+        FL.flash_attention(q, k, v).backward(do)
+    x = rand(B, seq, cfg.d_model)
+    w = rand(cfg.d_model, cfg.vocab_size, dtype=torch.float32)
+    labels = torch.randint(0, cfg.vocab_size, (B, seq), generator=gen,
+                           device=device)
+
+    def ce():
+        LY.chunked_cross_entropy(x, w, labels).backward()
+    layer_ms = device_ms(fwd, 2) + device_ms(fwd_bwd, 2)
+    return {"flash_s": cfg.n_layers * micro_steps * layer_ms / 1e3,
+            "ce_s": micro_steps * device_ms(ce, 2) / 1e3}
+
+
+def phase_train(device, smi: str, *, arch: str, n_layers: int, seq: int,
+                batch: int, micro_steps: int, steps: int) -> dict:
+    """Phase 17a, the main path: ``make_train_step`` on ``arch`` at full
+    width cut to ``n_layers`` (bf16 compute over f32 masters drawn from
+    a seeded generator on the card), ``token_stream`` batches of
+    ``batch`` x ``seq`` in ``micro_steps`` micro-steps: one warm-up step,
+    then ``steps`` timed (host clock ended by a sync).  Every launch
+    count is set to 0 before and read after: training reaches none of
+    the four kernels.  Fails on a non-finite loss or a first loss more
+    than 1.0 from ln V."""
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    shape = InputShape("train_4k", seq, batch, "train")
+    on_card = device.type == "cuda"
+    _free(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+        free = torch.cuda.mem_get_info(device)[0]
+    t0 = time.perf_counter()
+    params = PR.init_params(LM.param_defs(cfg), torch.Generator(
+        device=device).manual_seed(SEED))
+    opt = ADAMW.init(params)
+    state_gb = 4 * sum(t.numel() for t in TREE.leaves(params)) * 4 / 1e9
+    step = TS.make_train_step(cfg, shape, micro_steps=micro_steps)
+    stream = token_stream(cfg.vocab_size, batch, seq, seed=SEED)
+    rows = []
+    _reset_launches()
+    with UpdateClock(device) as upd:
+        for i in range(1 + steps):
+            b = _on(next(stream), device)
+            _sync(device)
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            _sync(device)
+            dt = time.perf_counter() - t
+            vals = {k: float(v) for k, v in m.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"17a step {i}: {vals}")
+            rows.append((dt, vals))
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"17a: the training path launched {launches}")
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    split = (train_split(cfg, device, batch=batch, seq=seq,
+                         micro_steps=micro_steps) if on_card else None)
+    first, lnv = rows[0][1]["loss"], float(np.log(cfg.vocab_size))
+    if abs(first - lnv) > 1.0:
+        raise AssertionError(f"17a: first loss {first} vs ln V {lnv}")
+    timed = [dt for dt, _ in rows[1:]]
+    step_s = float(np.mean(timed))
+    tokens = batch * seq
+    flops = LM.model_flops(cfg, shape)
+    for i, (dt, v) in enumerate(rows):
+        log(f"[17a train] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{v['loss']:.6f} grad_norm {v['grad_norm']:.6f} lr "
+            f"{v['lr']:.6g} | {dt:.4f} s (adamw {upd.s[i]:.4f} s)")
+    out = {"step_s": step_s, "tokens_s": tokens / step_s,
+           "flop_share": flops / step_s / PEAK_BF16_FLOPS_S,
+           "peak_gb": peak / 1e9, "first_loss": first}
+    log(f"[17a train] {cfg.name} full width, {n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.4f} B params, f32 masters + grads + "
+        f"m + v {state_gb:.2f} GB; batch {batch} x {seq} in {micro_steps} "
+        f"micro-steps (flash at S={seq}, chunked CE in {seq // 512} "
+        f"chunks): {step_s:.4f} s a step (steps {[f'{t:.4f}' for t in timed]}"
+        f"), {out['tokens_s']:.1f} tokens/s, model FLOPs {flops:.4g} a step "
+        f"= {out['flop_share']:.4f} of the bf16 dense peak (bound "
+        f"{flops / PEAK_BF16_FLOPS_S:.4f} s); first loss {first:.4f} (ln V "
+        f"{lnv:.4f}); peak allocated {out['peak_gb']:.2f} GB"
+        + (f" of {free / 1e9:.1f} GB free" if on_card else "")
+        + f"; adamw {np.mean(upd.s[1:]):.4f} s a step; launches {launches}"
+        f" | {smi} | {time.perf_counter() - t0:.1f} s")
+    if split:
+        rest = step_s - split["flash_s"] - split["ce_s"] - np.mean(upd.s[1:])
+        out.update(split)
+        log(f"[17a split] a step's flash attention {split['flash_s']:.4f} s"
+            f" ({split['flash_s'] / step_s:.3f} of the step: forward, "
+            f"recompute and backward of {n_layers} layers x {micro_steps} "
+            f"micro-steps, f32 in plain torch), chunked CE "
+            f"{split['ce_s']:.4f} s ({split['ce_s'] / step_s:.3f}), adamw "
+            f"{np.mean(upd.s[1:]):.4f} s, the rest (bf16 products, norms, "
+            f"rope, remat's recompute of them) {rest:.4f} s "
+            f"({rest / step_s:.3f}); each timed alone (CUDA events)")
+    del params, opt, step
+    _free(device)
+    return out
+
+
+def _close(a, b, what: str, *, lrs: float = 0.0) -> None:
+    """``b`` against ``a`` at the CPU tests' tolerance: ``F32_TRAIN`` of
+    the leaf's largest magnitude, or ``ADAM_STEP_TOL`` of the learning
+    rates ``lrs`` applied (a param)."""
+    a, b = (t.detach().cpu().float().numpy() for t in (a, b))
+    tol = max(F32_TRAIN * float(np.abs(a).max()), ADAM_STEP_TOL * lrs)
+    if not np.abs(a - b).max() <= tol:
+        raise AssertionError(f"17 {what}: differ by "
+                             f"{np.abs(a - b).max():.3g} (tolerance "
+                             f"{tol:.3g})")
+
+
+def phase_train_families(device, *, batch: int, seq: int) -> dict:
+    """Phase 17b: each family's smoke config in f32, the card against the
+    CPU from the same weights (drawn on the CPU, copied): two steps of
+    ``make_train_step``, the second with ``micro_steps = 2``; loss, aux,
+    grad_norm and lr each step, then every param, m and sqrt(v).  Returns
+    the card's states (for 17d)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for f32 products")
+    cpu = torch.device("cpu")
+    states = {}
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = smoke_config(arch).replace(dtype="float32")
+        shape = InputShape("smoke", seq, batch, "train")
+        host = PR.init_params(LM.param_defs(cfg),
+                              torch.Generator().manual_seed(SEED))
+        sides = [(dev, TREE.tree_map(lambda t: t.to(dev, copy=True), host))
+                 for dev in (device, cpu)]
+        sides = [(dev, p, ADAMW.init(p)) for dev, p in sides]
+        lrs, errs = 0.0, []
+        for n, seed in ((1, 1), (2, 2)):
+            step = TS.make_train_step(cfg, shape, micro_steps=n)
+            b = _train_batch(cfg, seed, batch=batch, seq=seq)
+            ms = []
+            for i, (dev, p, o) in enumerate(sides):
+                p, o, m = step(p, o, _on(b, dev))
+                sides[i] = (dev, p, o)
+                ms.append({k: float(v) for k, v in m.items()})
+            for k in ms[0]:
+                err = abs(ms[0][k] - ms[1][k]) / max(abs(ms[0][k]), 1.0)
+                errs.append(err)
+                if err > F32_TRAIN:
+                    raise AssertionError(f"17b {arch} {k}: card {ms[0][k]} "
+                                         f"CPU {ms[1][k]}")
+            lrs += ms[0]["lr"]
+        (_, pa, oa), (_, pb, ob) = sides
+        for a, b in zip(TREE.leaves(pa), TREE.leaves(pb)):
+            _close(a, b, f"{arch} param", lrs=lrs)
+        for a, b in zip(TREE.leaves(oa.m), TREE.leaves(ob.m)):
+            _close(a, b, f"{arch} m")
+        for a, b in zip(TREE.leaves(oa.v), TREE.leaves(ob.v)):
+            _close(a.sqrt(), b.sqrt(), f"{arch} sqrt(v)")
+        states[arch] = (cfg, pa, oa)
+        log(f"[17b train card vs cpu] {arch} smoke f32: 2 steps (micro 1, "
+            f"2); metrics within {max(errs):.3g} relative; "
+            f"{len(TREE.leaves(pa))} params, their m and sqrt(v) within the "
+            f"CPU tests' tolerance; loss {ms[0]['loss']:.6f} | "
+            f"{time.perf_counter() - t0:.1f} s")
+    return states
+
+
+def phase_train_converge(device, *, batch: int, seq: int) -> None:
+    """Phase 17c: the twin of ``tests/test_train.py::test_loss_decreases``
+    through the port's ``fit`` on the card."""
+    t0 = time.perf_counter()
+    cfg = smoke_config(TRAIN_ARCH)
+    b = next(token_stream(cfg.vocab_size, batch, seq, seed=SEED))
+    rep = fit(cfg, InputShape("tiny", seq, batch, "train"),
+              iter(lambda: b, None), 30, log_every=0, device=device)
+    first, last = np.mean(rep.losses[:5]), np.mean(rep.losses[-5:])
+    if not last < first - 0.2:
+        raise AssertionError(f"17c: loss {first} -> {last}")
+    log(f"[17c converge] {cfg.name} smoke, one batch, 30 steps: mean loss "
+        f"of the first 5 {first:.4f}, of the last 5 {last:.4f} | "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_train_restarts(device, states: dict, *, batch: int,
+                         seq: int) -> None:
+    """Phase 17d: 17b's card state through a checkpoint (bit-equal
+    leaves on the card), then ``run_with_restarts`` of 10 train steps
+    with failures injected before steps 3 and 7: 2 restores, and the
+    final state equal to an uninterrupted run's at the CPU tests'
+    tolerance (the largest difference printed: 0 when the card's step is
+    deterministic)."""
+    t0 = time.perf_counter()
+    cfg, p, o = states[TRAIN_ARCH]
+    shape = InputShape("smoke", seq, batch, "train")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        CKPT.save(tmp, 2, (p, o))
+        (p2, o2), step = CKPT.restore(tmp, (p, o))
+        pairs = list(zip(TREE.leaves((p, o)), TREE.leaves((p2, o2))))
+        if step != 2 or not all(b.device == a.device and torch.equal(a, b)
+                                for a, b in pairs):
+            raise AssertionError("17d: the checkpoint did not round-trip")
+    train = TS.make_train_step(cfg, shape)
+    batches = [_on(_train_batch(cfg, 10 + i, batch=batch, seq=seq), device)
+               for i in range(10)]
+
+    def fresh():
+        q = PR.init_params(LM.param_defs(cfg), torch.Generator(
+            device=device).manual_seed(SEED))
+        return q, ADAMW.init(q)
+
+    def step_fn(state, i):
+        if i in fail_at:
+            fail_at.discard(i)
+            raise RuntimeError(f"injected failure at {i}")
+        return train(*state, batches[i])[:2]
+
+    fail_at = set()
+    want = fresh()
+    for i in range(10):
+        want = step_fn(want, i)
+    fail_at = {3, 7}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_restart_") as tmp:
+        got, rep = run_with_restarts(step_fn, fresh(), 10, ckpt_dir=tmp,
+                                     ckpt_every=2)
+    if rep.steps_done != 10 or rep.n_restores != 2 or int(got[1].step) != 10:
+        raise AssertionError(f"17d: {rep}")
+    lrs = float(sum(ADAMW.cosine_lr(torch.tensor(i + 1)) for i in range(10)))
+    for a, b in zip(TREE.leaves(want[0]), TREE.leaves(got[0])):
+        _close(a, b, "restarted vs uninterrupted param", lrs=lrs)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(TREE.leaves(want), TREE.leaves(got)))
+    log(f"[17d checkpoint] {len(pairs)} leaves bit-equal after a round "
+        f"trip on the card; run_with_restarts: 10 steps, "
+        f"{rep.n_failures} failures, {rep.n_restores} restores, final "
+        f"state within the CPU tests' tolerance of an uninterrupted run "
+        f"(largest difference {diff:.3g}) | "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# one rank of phase 17e: argv = src dir, backend, world, rank, device, tmp;
+# writes <backend>_rank<rank>.npz
+COMPRESS_RANK = r"""
+import sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from repro_torch.distributed.compression import (compressed_grad_reduce,
+                                                 init_error_state)
+_, _, backend, world, rank, dev, tmp = sys.argv
+world, rank = int(world), int(rank)
+dist.init_process_group(backend, init_method=f"file://{tmp}/rdv_{backend}",
+                        world_size=world, rank=rank)
+a = np.load(f"{tmp}/grads.npz")
+g = {k: torch.as_tensor(a[k][rank], device=dev) for k in a.files}
+err = init_error_state(g)
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+ghat, err = compressed_grad_reduce(g, err)
+sync()
+t0 = time.perf_counter()
+compressed_grad_reduce(g, err)
+sync()
+ms = (time.perf_counter() - t0) * 1e3
+np.savez(f"{tmp}/{backend}_rank{rank}.npz", ms=ms,
+         device=str(ghat["g0"].device),
+         **{k: v.cpu().numpy() for k, v in ghat.items()})
+dist.destroy_process_group()
+"""
+
+
+def phase_compression(device, *, world: int, shapes) -> None:
+    """Phase 17e: ``compressed_grad_reduce`` over ``world`` gloo ranks
+    (processes) on the one card's tensors, then 1 NCCL rank (on the CPU:
+    the gloo ranks alone): the dequantized mean within ``COMPRESS_TOL``
+    of the largest |f32 mean| on every rank."""
+    rng = np.random.default_rng(SEED)
+    grads = {f"g{i}": rng.standard_normal((world,) + shp).astype(np.float32)
+             for i, shp in enumerate(shapes)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cg_") as tmp:
+        np.savez(f"{tmp}/grads.npz", **grads)
+        on_card = device.type == "cuda"
+        runs = [("gloo", world)] + ([("nccl", 1)] if on_card else [])
+        t0 = time.perf_counter()
+        procs = {(backend, r): subprocess.Popen(
+            [sys.executable, "-c", COMPRESS_RANK, str(ROOT / "src"), backend,
+             str(n), str(r), device.type, tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for backend, n in runs for r in range(n)}
+        errs = {}
+        try:
+            for key, p in procs.items():
+                errs[key] = p.communicate(timeout=300)[1]
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for backend, n in runs:
+            worst, ms = 0.0, []
+            for r in range(n):
+                path = Path(tmp) / f"{backend}_rank{r}.npz"
+                if not path.exists():
+                    raise AssertionError(
+                        f"17e {backend} rank {r} exited "
+                        f"{procs[(backend, r)].returncode}: "
+                        f"{errs[(backend, r)][-2000:]}")
+                got = np.load(path)
+                ms.append(float(got["ms"]))
+                for k, g in grads.items():
+                    want = g[:n].mean(0)
+                    err = float(np.abs(got[k] - want).max()
+                                / np.abs(want).max())
+                    worst = max(worst, err)
+                    if err >= COMPRESS_TOL:
+                        raise AssertionError(f"17e {backend} rank {r} {k}: "
+                                             f"{err:.4f} of max |mean|")
+            log(f"[17e compression] {backend}, {n} rank(s) on "
+                f"{got['device']}: {len(grads)} leaves "
+                f"({sum(int(np.prod(s)) for s in shapes)} values), the int8 "
+                f"mean within {worst:.4f} of max |f32 mean| (bound "
+                f"{COMPRESS_TOL}) | ms a reduce (host clock, each rank) "
+                f"{[f'{m:.3f}' for m in ms]}")
+        log(f"[17e] {time.perf_counter() - t0:.1f} s with the ranks' start")
+
+
+def phase_training(device, smi: str) -> None:
+    """Phase 17: the training path and its checks (a)-(e)."""
+    t17 = time.perf_counter()
+    phase_train(device, smi, arch=TRAIN_ARCH, **TRAIN)
+    states = phase_train_families(device, **TRAIN_SMOKE)
+    phase_train_converge(device, **TRAIN_SMOKE)
+    phase_train_restarts(device, states, **TRAIN_SMOKE)
+    del states
+    _free(device)
+    phase_compression(device, **COMPRESS)
+    _reset_launches()
+    log(f"[17] {time.perf_counter() - t17:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -3701,6 +4155,7 @@ def main(argv=None) -> int:
     log(f"[15c] {time.perf_counter() - t15:.1f} s")
     phase_sharded_store(store, gathers[0][0].cpu().numpy(), device,
                         **SHARD_STORE)
+    phase_training(device, dev_info["smi"])
     ins_launches, ins_recorded, ins_bufs = phase_insert(
         ds, meta, store, qstore, device, k=FULL["k"],
         doorbell=FULL["doorbell"], scan_recall=scan_stats["recall_at_k"])

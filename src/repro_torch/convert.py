@@ -17,7 +17,9 @@ store_arrays: ``spec`` = {``dim``, ``deg``, ``np_max``, ``ov_cap``,
 
 ``lm_params_from_numpy`` does the same for an LM's parameters: the
 reference's params pytree (nested dicts, leaves as numpy arrays) becomes
-the port's tree of tensors in the dtypes a serving copy keeps.
+the port's tree of tensors in the dtypes a serving copy keeps.  Training
+holds f32 masters instead: ``train_state_from_numpy`` carries the
+reference's params and ``AdamWState`` (step, m, v) across as they are.
 """
 from __future__ import annotations
 
@@ -97,3 +99,21 @@ def lm_params_from_numpy(cfg, tree: dict, device) -> dict:
                 .to(stored_dtype(cfg, key))
                 for key, val in node.items()}
     return conv(tree)
+
+
+def train_state_from_numpy(params: dict, opt=None, *, device):
+    """The port's training state from the reference's as numpy: (params,
+    ``AdamWState`` or None).  Each leaf keeps its dtype (the reference's
+    masters and moments are f32, its step int32)."""
+    from repro_torch import tree as T
+    from repro_torch.train.adamw import AdamWState
+
+    def conv(a):
+        return torch.as_tensor(np.array(a), device=device)
+    p = T.tree_map(conv, params)
+    if opt is None:
+        return p, None
+    step, m, v = opt
+    return p, AdamWState(conv(np.asarray(step, np.int32)),
+                         T.tree_map(conv, m), T.tree_map(conv, v))
+

@@ -1,4 +1,4 @@
-"""whisper-style encoder-decoder backbone, forward only, on torch.
+"""whisper-style encoder-decoder backbone, on torch.
 
 Port of ``repro/models/encdec.py``.  The audio frontend is a stub, as in
 the reference: the caller passes frame embeddings (B, enc_seq, d_model).
@@ -149,19 +149,29 @@ def _embed(cfg, params, tokens, positions):
             + _sinusoid(positions, cfg.d_model).to(dt0))
 
 
-def forward(cfg, params, tokens, *, frames):
-    """Frames and teacher-forced tokens -> (logits (B, S, V) f32, aux 0)."""
+def _train_layer(cfg, p, x, enc):
+    x, _ = _self_attn(cfg, p, x, causal=True)
+    x = _cross_attn(cfg, p, x, *_cross_kv(cfg, p, enc))
+    return _mlp(cfg, p, x)
+
+
+def forward(cfg, params, tokens, *, frames, remat=True, return_hidden=False):
+    """Frames and teacher-forced tokens -> (logits (B, S, V) f32, or the
+    final normed hidden with ``return_hidden``; aux 0).  ``remat``
+    recomputes each decoder layer in the backward (the encoder's are
+    kept, as in the reference)."""
     enc = encode(cfg, params, frames)
     S = tokens.shape[1]
     x = _embed(cfg, params, tokens,
                torch.arange(S, device=tokens.device)[None])
     for l in range(cfg.n_layers):
-        p = layer(params["dec_blocks"], l)
-        x, _ = _self_attn(cfg, p, x, causal=True)
-        x = _cross_attn(cfg, p, x, *_cross_kv(cfg, p, enc))
-        x = _mlp(cfg, p, x)
+        x = L.remat(remat, _train_layer, cfg, layer(params["dec_blocks"], l),
+                    x, enc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params, x), torch.zeros((), dtype=F32, device=x.device)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return L.unembed(params, x), aux
 
 
 def init_cache_abstract(cfg, batch: int, cache_len: int):

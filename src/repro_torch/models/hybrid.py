@@ -1,4 +1,4 @@
-"""zamba2-style hybrid, forward only, on torch: a Mamba-2 backbone and ONE
+"""zamba2-style hybrid, on torch: a Mamba-2 backbone and ONE
 shared attention-and-MLP block applied after every ``attn_every`` mamba
 layers, with the same weights at every use.
 
@@ -47,19 +47,24 @@ def _groups(cfg):
     return [(u, range(u * k, (u + 1) * k)) for u in range(n_uses(cfg))]
 
 
-def forward(cfg, params, tokens):
-    """-> (logits (B, S, V) f32, aux 0)."""
+def forward(cfg, params, tokens, *, remat=True, return_hidden=False):
+    """-> (logits (B, S, V) f32, or the final normed hidden with
+    ``return_hidden``; aux 0).  ``remat`` recomputes each mamba layer
+    and each use of the shared block in the backward; the shared block's
+    gradients from its uses meet in its f32 masters."""
     x = mamba2.embed(cfg, params, tokens)
     dense_cfg = cfg.replace(family="dense")
     for _, layers in _groups(cfg):
         for l in layers:
-            x, _ = mamba2.mixer(cfg, layer(params["blocks"], l), x,
-                                mode="train")
-        x, _, _ = tfm.block(dense_cfg, params["shared_attn"], x, 0,
-                            mode="train")
+            x = L.remat(remat, mamba2._train_mixer, cfg,
+                        layer(params["blocks"], l), x)
+        x, _ = L.remat(remat, tfm._train_block, dense_cfg,
+                       params["shared_attn"], x, 0)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (L.unembed(params, x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return L.unembed(params, x), aux
 
 
 def init_cache_abstract(cfg, batch: int, cache_len: int):

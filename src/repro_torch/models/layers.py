@@ -1,9 +1,10 @@
-"""Shared neural building blocks, forward only, on torch.
+"""Shared neural building blocks, on torch.
 
 Port of ``repro/models/layers.py``.  Attention comes in three flavours:
 
-  * ``flash.flash_attention`` — blocked online-softmax forward (prefill
-    at S >= 1024, chosen by ``attend``).
+  * ``flash.flash_attention`` — blocked online-softmax attention with a
+    backward that recomputes block scores (training and prefill at
+    S >= 1024, chosen by ``attend``).
   * ``attend_full`` — plain einsum path for short sequences.
   * ``attend_decode`` — single-token query against a KV cache (the plain
     route for layers with a sliding window or a score softcap; other
@@ -11,13 +12,19 @@ Port of ``repro/models/layers.py``.  Attention comes in three flavours:
 
 Scores are taken in f32 (the reference's ``preferred_element_type``:
 bf16 inputs are upcast exactly, so only the summation order differs).
-Norms and rope compute in f32 and cast back, as the reference does.  The
-cross-entropy functions belong to training and are not ported yet.
+Norms and rope compute in f32 and cast back, as the reference does.
+
+The loss: ``cross_entropy`` over f32 logits and ``chunked_cross_entropy``,
+which never holds the (B, S, V) f32 logits: each S-chunk's logits are
+recomputed in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` with ``nothing_saveable``).  ``remat`` is the same
+per-layer recompute for the models' training forward.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG = -1e30
 
@@ -162,9 +169,16 @@ def gelu_mlp(x, w1, w2):
 
 
 def embed(params, tokens, dt):
-    """Token embeddings in ``dt``: gather then cast, the same numbers as
-    the reference's cast then gather without a copy of the whole table."""
-    return params["embed"][tokens].to(dt)
+    """Token embeddings in ``dt``.  Serving gathers then casts: the same
+    numbers as the reference's cast then gather, without a copy of the
+    whole table.  When the table takes a gradient the reference's order
+    is kept, because it decides the backward: the scatter-add of repeated
+    tokens' gradients then runs in ``dt`` (bf16), as the reference's does,
+    before the cast back to the f32 master."""
+    table = params["embed"]
+    if table.requires_grad and torch.is_grad_enabled():
+        return table.to(dt)[tokens]
+    return table[tokens].to(dt)
 
 
 def unembed(params, x):
@@ -174,3 +188,68 @@ def unembed(params, x):
 
 def softcap_logits(logits, cap: float):
     return _softcap(logits, cap)
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``enabled`` and autograd is recording (the reference's per-layer
+    ``jax.checkpoint`` with ``nothing_saveable``)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ----------------------------------------------------------------- loss
+
+
+def _true_logit(logits, labels):
+    """``logits`` at each label, 0 where the label lies outside [0, V):
+    the reference sums the logits against ``jax.nn.one_hot(labels, V)``,
+    a zero row for such a label (``ignore_id = -1`` among them), where a
+    torch gather would wrap -1 to the last logit."""
+    V = logits.shape[-1]
+    inside = (labels >= 0) & (labels < V)
+    idx = labels.clamp(0, V - 1).long()[..., None]
+    return torch.where(inside, logits.gather(-1, idx)[..., 0], 0.0)
+
+
+def cross_entropy(logits, labels, *, ignore_id: int = -1):
+    """logits: (B, S, V); labels: (B, S).  The mean negative log
+    likelihood over the labels that are not ``ignore_id``."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, -1) - _true_logit(logits, labels)
+    valid = (labels != ignore_id).float()
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def _ce_chunk(xc, unembed, lc, softcap, ignore_id):
+    """(sum of one chunk's nll over its valid labels, their count)."""
+    logits = (xc @ unembed.to(xc.dtype)).float()
+    logits = _softcap(logits, softcap)
+    nll = torch.logsumexp(logits, -1) - _true_logit(logits, lc)
+    valid = (lc != ignore_id).float()
+    return (nll * valid).sum(), valid.sum()
+
+
+def chunked_cross_entropy(x, unembed, labels, *, softcap=0.0,
+                          ignore_id: int = -1, chunk: int = 512):
+    """CE without the full (B, S, V) f32 logits: a loop over S-chunks,
+    each chunk's logits recomputed in the backward.  x: (B, S, d) final
+    normed hidden; unembed: (d, V), cast to x's dtype inside each chunk
+    (so its bf16 gradients meet in f32, as the reference's scan
+    accumulates them).  Sequences of at most one chunk, or not a
+    multiple of it, take the unchunked path, as the reference's do."""
+    B, S, d = x.shape
+    if S % chunk != 0 or S <= chunk:
+        logits = x @ unembed.to(x.dtype)
+        return cross_entropy(softcap_logits(logits.float(), softcap),
+                             labels, ignore_id=ignore_id)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_valid = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        cs = slice(c * chunk, (c + 1) * chunk)
+        nll, nv = remat(True, _ce_chunk, x[:, cs], unembed, labels[:, cs],
+                        softcap, ignore_id)
+        nll_sum = nll_sum + nll
+        n_valid = n_valid + nv
+    return nll_sum / torch.clamp(n_valid, min=1.0)

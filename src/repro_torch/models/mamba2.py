@@ -1,5 +1,4 @@
-"""Mamba-2 (SSD, state-space duality) mixer and LM, forward only, on
-torch.
+"""Mamba-2 (SSD, state-space duality) mixer and LM, on torch.
 
 Port of ``repro/models/mamba2.py``.  Prefill runs the chunked SSD
 algorithm (quadratic within Q-token chunks, a linear recurrence across
@@ -223,13 +222,22 @@ def embed(cfg, params, tokens):
     return L.embed(params, tokens, compute_dtype(cfg))
 
 
-def forward(cfg, params, tokens):
-    """-> (logits (B, S, V) f32, aux 0)."""
+def _train_mixer(cfg, p, x):
+    return mixer(cfg, p, x, mode="train")[0]
+
+
+def forward(cfg, params, tokens, *, remat=True, return_hidden=False):
+    """-> (logits (B, S, V) f32, or the final normed hidden with
+    ``return_hidden``; aux 0).  ``remat`` recomputes each layer in the
+    backward."""
     x = embed(cfg, params, tokens)
     for l in range(cfg.n_layers):
-        x, _ = mixer(cfg, layer(params["blocks"], l), x, mode="train")
+        x = L.remat(remat, _train_mixer, cfg, layer(params["blocks"], l), x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params, x), torch.zeros((), dtype=F32, device=x.device)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return L.unembed(params, x), aux
 
 
 def init_cache_abstract(cfg, batch: int, cache_len: int):

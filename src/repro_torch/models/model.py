@@ -2,10 +2,11 @@
 
 Port of ``repro/models/model.py``'s dispatch (``param_defs``,
 ``forward``, ``prefill``, ``decode_step``, ``init_cache_abstract``) for
-all six families.  As in the reference, an ``encdec`` batch must carry
-``"frames"`` (a ``KeyError`` otherwise) and a ``vlm`` batch may carry
-``"patches"``.  The reference's abstract inputs and sharding specs serve
-its XLA dry-runs, which have no counterpart here.
+all six families, ``input_specs`` (meta-device tensors in place of the
+reference's ``ShapeDtypeStruct``s) and ``model_flops``.  As in the
+reference, an ``encdec`` batch must carry ``"frames"`` (a ``KeyError``
+otherwise) and a ``vlm`` batch may carry ``"patches"``.  The reference's
+input sharding specs serve its mesh, which has no counterpart here.
 
 ``stored_dtype`` says how a serving copy keeps each parameter: the
 matrices that every product casts to the compute dtype
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import encdec, hybrid, mamba2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import compute_dtype
@@ -60,9 +61,12 @@ def _inputs(cfg, batch: dict) -> dict:
     return {}
 
 
-def forward(cfg, params, batch: dict):
-    """-> (logits (B, S, V) f32, moe aux loss)."""
+def forward(cfg, params, batch: dict, *, remat=True, return_hidden=False):
+    """-> (logits (B, S, V) f32, or the final normed hidden with
+    ``return_hidden``; moe aux loss)."""
     return family_module(cfg).forward(cfg, params, batch["tokens"],
+                                      remat=remat,
+                                      return_hidden=return_hidden,
                                       **_inputs(cfg, batch))
 
 
@@ -79,3 +83,45 @@ def decode_step(cfg, params, cache, tokens, pos):
 
 def init_cache_abstract(cfg, batch: int, cache_len: int):
     return family_module(cfg).init_cache_abstract(cfg, batch, cache_len)
+
+
+# --------------------------------------------------------------- inputs
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """The model inputs of one cell as meta tensors (shape and dtype, no
+    storage).  Keys depend on ``shape.kind``."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+    i32, f32 = torch.int32, torch.float32
+    out = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = meta((B, S), i32)
+        if shape.kind == "train":
+            out["labels"] = meta((B, S), i32)
+        if cfg.family == "encdec":
+            out["frames"] = meta((B, cfg.enc_seq, cfg.d_model), f32)
+        if cfg.family == "vlm":
+            out["patches"] = meta((B, cfg.n_patches, cfg.d_model), f32)
+    else:  # decode: one new token against a cache of length S
+        out["tokens"] = meta((B,), i32)
+        out["pos"] = meta((B,), i32)
+    return out
+
+
+# --------------------------------------------------------------- flops
+
+
+def model_flops(cfg: ModelConfig, shape: InputShape) -> float:
+    """MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D (MoE); decode D = batch
+    tokens (one step).  Training counts fwd+bwd (x3 of 2ND)."""
+    n = cfg.param_count(active_only=(cfg.family == "moe"))
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n * tokens
+    return 2.0 * n * shape.global_batch  # decode: one token per sequence

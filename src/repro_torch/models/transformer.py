@@ -1,11 +1,13 @@
-"""Decoder-only transformer, forward only, on torch: the ``dense`` family
-and the backbone of ``moe`` and ``vlm``.
+"""Decoder-only transformer, on torch: the ``dense`` family and the
+backbone of ``moe`` and ``vlm``.
 
 Port of ``repro/models/transformer.py``.  The
 reference stacks layers on a leading L axis and drives them with
 ``lax.scan``; here the stacked tensors stay as they are and a Python loop
-indexes layer ``l`` (a view, no copy).  Per-layer sliding windows
-(``layer_windows``) ride along as Python ints.
+indexes layer ``l`` (a view, no copy; its gradient lands in the stacked
+master).  Per-layer sliding windows (``layer_windows``) ride along as
+Python ints.  The training forward recomputes each layer in the
+backward (``remat``), as the reference's checkpointed scan body does.
 
 The KV cache ``(L, B, Smax, K, hd)`` is allocated once by ``prefill`` and
 written in place by ``decode_step`` (JAX arrays are immutable, so the
@@ -177,19 +179,29 @@ def _logits(cfg, params, x):
     return L.softcap_logits(L.unembed(params, x), cfg.logit_softcap)
 
 
-def forward(cfg: ModelConfig, params, tokens, *, patches=None):
+def _train_block(cfg, p, x, window: int):
+    x, _, aux = block(cfg, p, x, window, mode="train")
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params, tokens, *, patches=None, remat=True,
+            return_hidden=False):
     """Full-sequence forward -> (logits (B, S_total, V) f32, moe aux loss:
     the mean over layers, 0 unless moe).  S_total counts the prepended
-    patches (vlm).  Forward only: no remat, and the reference's
-    ``return_hidden`` (for the training loss) comes with training."""
+    patches (vlm).  With ``return_hidden``, the final normed hidden
+    (B, S_total, d) in place of the logits (the training loss takes the
+    chunked CE).  ``remat`` recomputes each layer in the backward."""
     x = seq_shard(embed_tokens(cfg, params, tokens, patches))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, w in enumerate(layer_windows(cfg)):
-        x, _, a = block(cfg, layer(params["blocks"], l), x, int(w),
-                        mode="train")
+        x, a = L.remat(remat, _train_block, cfg, layer(params["blocks"], l),
+                       x, int(w))
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x), aux / max(cfg.n_layers, 1)
+    aux = aux / max(cfg.n_layers, 1)
+    if return_hidden:
+        return x, aux
+    return _logits(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache_len: int, *,

@@ -1,5 +1,7 @@
-"""Shared by ``tests/test_torch_families.py`` and ``tests/test_torch_ssm.py``:
-one family of the port against the JAX package's, on the CPU.
+"""Shared by ``tests/test_torch_families.py``, ``tests/test_torch_ssm.py``
+and the training tests (``tests/test_torch_train*.py``,
+``check_train_step``): one family of the port against the JAX
+package's, on the CPU.
 
 Parameters are drawn once by the JAX package and carried across with
 ``convert.lm_params_from_numpy``; inputs are made with numpy from a
@@ -23,6 +25,7 @@ gives the two choices within ``NEAR_TIE``) and at no more than
 reference's choices forced on the port's router.
 """
 import numpy as np
+import pytest
 import torch
 
 from repro_torch import convert
@@ -222,3 +225,160 @@ def check_family(jx, monkeypatch, arch: str, patches: bool, dtype: str,
     if routing:
         routing.check(dtype)
     return routing
+
+
+# ------------------------------------------------------------- training
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One torch intra-op thread for a module of smoke-size steps: their
+    ops are tiny, and under a parallel run (workers sharing the cores) a
+    pool of threads a process spends most of its time waiting for the
+    others (a phase-17 CPU run took 64 s against 11 s on a loaded host)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+TRAIN_B, TRAIN_S = 4, 32
+# f32 training: each gradient leaf, m and sqrt(v) within this share of
+# the leaf's largest magnitude (measured: 5.4e-6); an updated param also
+# within ADAM_STEP_TOL of the learning rates applied (an Adam step moves
+# a param by about lr whatever the gradient's size, so the leaves that
+# start at 0 — the norm scales — are held at the step's scale; measured:
+# 4.4e-9 absolute, 3e-4 of lr1 + lr2)
+F32_TRAIN = 1e-5
+ADAM_STEP_TOL = 1e-3
+# bf16 compute over f32 masters: twice the readings of
+# ``pytest -s tests/test_torch_train*.py -k bfloat16`` (on the CPU): the
+# largest relative error of a metric (loss, aux, grad_norm, lr), of a
+# gradient leaf and of an m or v leaf, and a param's largest difference
+# in learning-rate steps (Adam moves an element by about lr whatever its
+# gradient's size, so an element whose gradient is within bf16 noise of
+# 0 can move the other way: at most ~2 steps over two steps)
+BF16_TRAIN = {
+    # readings: metric, grad, param steps, state (m and sqrt(v))
+    "qwen3-8b": dict(metric_tol=0.0011, grad_tol=0.041, step_tol=3.4,
+                     state_tol=0.044),   # 5.5e-4 0.0203 1.653 0.0219
+    "qwen3-moe-30b-a3b": dict(metric_tol=0.0029, grad_tol=0.061,
+                              step_tol=3.9, state_tol=0.23),
+    # 1.45e-3 0.0301 1.929 0.111
+    "pixtral-12b": dict(metric_tol=0.00088, grad_tol=0.032, step_tol=3.6,
+                        state_tol=0.036),  # 4.4e-4 0.0156 1.799 0.0178
+    "mamba2-370m": dict(metric_tol=0.0029, grad_tol=0.135, step_tol=3.9,
+                        state_tol=0.094),  # 1.45e-3 0.0674 1.929 0.0468
+    "zamba2-2.7b": dict(metric_tol=0.0026, grad_tol=0.068, step_tol=4.0,
+                        state_tol=0.082),  # 1.29e-3 0.0337 1.990 0.0406
+    "whisper-tiny": dict(metric_tol=0.00058, grad_tol=0.04, step_tol=3.8,
+                         state_tol=0.035),  # 2.9e-4 0.0196 1.858 0.0172
+}
+
+
+def train_tols(arch: str, dtype: str) -> dict:
+    return BF16_TRAIN[arch] if dtype == "bfloat16" else {}
+
+
+def train_batch(cfg, seed: int, patches: bool = False) -> dict:
+    """Seeded numpy inputs of a train step at (TRAIN_B, TRAIN_S): tokens,
+    labels (three of them ``ignore_id``), frames or patches."""
+    rng = np.random.default_rng(seed)
+    shp = (TRAIN_B, TRAIN_S)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, shp).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab_size, shp).astype(np.int32)}
+    b["labels"][0, :3] = -1
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (TRAIN_B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if patches:
+        b["patches"] = rng.standard_normal(
+            (TRAIN_B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def rel_err(want, got) -> float:
+    """max |want - got| over the largest |want| of the leaf."""
+    want, got = _np(want), _np(got)
+    return float(np.abs(want - got).max() / max(np.abs(want).max(), 1e-30))
+
+
+def check_train_step(jx, arch: str, dtype: str, *, patches: bool = False,
+                     grad_tol: float = F32_TRAIN, state_tol: float = F32_TRAIN,
+                     metric_tol: float = F32_TRAIN,
+                     step_tol: float = ADAM_STEP_TOL) -> dict:
+    """``arch``'s smoke config at ``dtype``, the JAX package's training
+    against the port's on the same carried weights and numpy batches:
+    (1) the loss, the aux and every gradient leaf of ``loss_fn``; (2) two
+    steps of ``make_train_step`` (the second with ``micro_steps = 2``):
+    loss, aux, grad_norm and lr each step, then every param and the
+    ``AdamWState``.  Returns the largest relative errors (the readings
+    behind the bf16 bounds)."""
+    from repro.configs.base import InputShape as JShape
+    from repro.train import adamw as JA
+    from repro.train import train_step as JTS
+    from repro_torch import tree as T
+    from repro_torch.configs.base import InputShape
+    from repro_torch.train import train_step as TS
+    jax, jnp = jx.jax, jx.jnp
+    jcfg = jx.R.smoke_config(arch).replace(dtype=dtype)
+    cfg = R.smoke_config(arch).replace(dtype=dtype)
+    jp, tree = reference_params(jx, arch)
+    batches = [train_batch(cfg, s, patches) for s in (1, 2)]
+    jbs = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
+    tbs = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    read = {}
+
+    (_, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p_, b: JTS.loss_fn(jcfg, p_, b), has_aux=True))(jp, jbs[0])
+    p, _ = convert.train_state_from_numpy(tree, device="cpu")
+    for leaf in T.leaves(p):
+        leaf.requires_grad_(True)
+    m = TS.accumulate_grads(cfg, p, tbs[0])
+    read["metric"] = 0.0
+
+    def metrics_close(m, jm, keys):
+        for k in keys:
+            a, b = float(jm[k]), float(m[k])
+            read["metric"] = max(read["metric"], abs(a - b) / max(abs(a), 1))
+            np.testing.assert_allclose(b, a, rtol=metric_tol,
+                                       atol=metric_tol)
+    metrics_close(m, jm, ("loss", "aux"))
+    grads = [rel_err(a, b.grad) for a, b in zip(jax.tree.leaves(jg),
+                                                 T.leaves(p))]
+    assert len(grads) == len(jax.tree.leaves(jg))
+    read["grad"] = max(grads)
+    assert read["grad"] <= grad_tol, grads
+
+    shape = InputShape("t", TRAIN_S, TRAIN_B, "train")
+    jshape = JShape("t", TRAIN_S, TRAIN_B, "train")
+    js = [jax.jit(JTS.make_train_step(jcfg, jshape, micro_steps=n)[0])
+          for n in (1, 2)]
+    ts = [TS.make_train_step(cfg, shape, micro_steps=n) for n in (1, 2)]
+    jstate = (jp, JA.init(jp))
+    p, opt = convert.train_state_from_numpy(
+        tree, jax.tree.map(np.asarray, tuple(jstate[1])), device="cpu")
+    lrs = 0.0
+    for jstep, tstep, jb, tb in zip(js, ts, jbs, tbs):
+        *jstate, jm = jstep(*jstate, jb)
+        p, opt, m = tstep(p, opt, tb)
+        metrics_close(m, jm, ("loss", "aux", "grad_norm", "lr"))
+        lrs += float(jm["lr"])
+    assert int(opt.step) == int(jstate[1].step) == 2
+    assert all(not leaf.requires_grad and leaf.grad is None
+               for leaf in T.leaves(p))
+    read["param_steps"] = 0.0
+    for a, b in zip(jax.tree.leaves(jstate[0]), T.leaves(p)):
+        a, b = _np(a), _np(b)
+        read["param_steps"] = max(read["param_steps"],
+                                  float(np.abs(a - b).max()) / lrs)
+        np.testing.assert_allclose(b, a, rtol=0, atol=max(
+            state_tol * np.abs(a).max(), step_tol * lrs))
+    # v tracks g^2, so it is held as sqrt(v), which scales like g (a
+    # relative error e in g is 2e in v)
+    states = [rel_err(a, b) for a, b in zip(
+        jax.tree.leaves(jstate[1].m), T.leaves(opt.m))] + [
+        rel_err(np.sqrt(_np(a)), np.sqrt(_np(b))) for a, b in zip(
+            jax.tree.leaves(jstate[1].v), T.leaves(opt.v))]
+    read["state"] = max(states)
+    assert read["state"] <= state_tol, states
+    return read

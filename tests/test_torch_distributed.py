@@ -189,3 +189,149 @@ def test_chip_smoke_sharded_store_phase_on_cpu(capsys):
     out = capsys.readouterr().out
     assert f"gloo, {WORLD} rank(s) on cpu: {len(ids)} blocks a fetch" in out
     assert "bit-equal to the store's rows on every rank" in out
+
+
+# ------------------------------------------------- gradient compression
+
+COMPRESS_RANK = """
+import sys, numpy as np, torch, torch.distributed as dist
+from repro_torch.distributed.compression import (
+    compressed_grad_reduce, init_error_state)
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                        world_size=%(world)d, rank=rank)
+a = np.load(f"{tmp}/grads.npz")
+calls = []
+real = dist.all_reduce
+dist.all_reduce = lambda *x, **k: calls.append(k.get("op")) or real(*x, **k)
+err = init_error_state({"w": torch.zeros(a["w1"].shape[1:]),
+                        "b": torch.zeros(a["b1"].shape[1:])})
+out = {}
+for s in (1, 2):
+    g = {"w": torch.from_numpy(a[f"w{s}"][rank]),
+         "b": torch.from_numpy(a[f"b{s}"][rank])}
+    ghat, err = compressed_grad_reduce(g, err)
+    for k in ("w", "b"):
+        out[f"g{k}{s}"] = ghat[k].numpy()
+        out[f"e{k}{s}"] = err.residual[k].numpy()
+out["ops"] = np.array([str(c) for c in calls])
+np.savez(f"{tmp}/rank{rank}.npz", **out)
+dist.destroy_process_group()
+""" % {"world": WORLD}
+
+COMPRESS_REFERENCE = """
+import sys, numpy as np, jax
+from jax.sharding import PartitionSpec as P
+from repro.core.distributed import shard_map_compat
+from repro.distributed.compression import ErrorState, compressed_grad_reduce
+tmp = sys.argv[1]
+a = np.load(f"{tmp}/grads.npz")
+mesh = jax.make_mesh((%(world)d,), ("data",))
+
+def red(w, b, ew, eb):
+    g, new = compressed_grad_reduce({"w": w[0], "b": b[0]},
+                                    ErrorState({"w": ew[0], "b": eb[0]}),
+                                    mesh)
+    return (g["w"], g["b"], new.residual["w"][None],
+            new.residual["b"][None])
+f = jax.jit(shard_map_compat(red, mesh=mesh, in_specs=(P("data"),) * 4,
+                             out_specs=(P(), P(), P("data"), P("data"))))
+ew, eb = np.zeros_like(a["w1"]), np.zeros_like(a["b1"])
+out = {}
+for s in (1, 2):
+    gw, gb, ew, eb = f(a[f"w{s}"], a[f"b{s}"], ew, eb)
+    out.update({f"gw{s}": np.asarray(gw), f"gb{s}": np.asarray(gb),
+                f"ew{s}": np.asarray(ew), f"eb{s}": np.asarray(eb)})
+np.savez(f"{tmp}/reference.npz", **out)
+""" % {"world": WORLD}
+
+
+@pytest.fixture(scope="module")
+def compressed(tmp_path_factory):
+    """Two steps of ``compressed_grad_reduce`` (error feedback carried)
+    on 4 gloo ranks and on the JAX package's 4-device host mesh, on the
+    same seeded local grads: (grads, each rank's results, the
+    reference's)."""
+    tmp = tmp_path_factory.mktemp("compress")
+    rng = np.random.default_rng(0)
+    grads = {f"{k}{s}": (rng.standard_normal((WORLD,) + shp) * sc).astype(
+        np.float32) for s in (1, 2) for k, shp, sc in (
+            ("w", (64, 32), 1.0), ("b", (17,), 1e-3))}
+    grads["b1"][2, 5] = 0.5          # one rank holds the shared absmax
+    np.savez(tmp / "grads.npz", **grads)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref = subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(COMPRESS_REFERENCE),
+         str(tmp)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=_env(XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}"))
+    ranks = [subprocess.Popen(
+        [sys.executable, "-c", COMPRESS_RANK, str(r), str(tmp)], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env()) for r in range(WORLD)]
+    for p in ranks + [ref]:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    return (grads, [np.load(tmp / f"rank{r}.npz") for r in range(WORLD)],
+            np.load(tmp / "reference.npz"))
+
+
+def test_compressed_reduce_equals_the_reference_bit_for_bit(compressed):
+    """Every rank's dequantized mean and its own residual, both steps,
+    equal the JAX package's on the host mesh bit for bit: the shared
+    absmax is a max (exact), the scale one f32 division on both sides,
+    round half to even on both, the int32 sum exact, and the dequantize
+    the same two f32 operations in the same order."""
+    _, ranks, ref = compressed
+    for r, got in enumerate(ranks):
+        for s in (1, 2):
+            for k in ("w", "b"):
+                np.testing.assert_array_equal(got[f"g{k}{s}"],
+                                              ref[f"g{k}{s}"])
+                np.testing.assert_array_equal(got[f"e{k}{s}"],
+                                              ref[f"e{k}{s}"][r])
+
+
+def test_compressed_reduce_is_the_mean_within_the_reference_bound(
+        compressed):
+    """The int8 mean within 5 % of the largest |f32 mean| (the bound of
+    ``tests/test_distributed.py``'s compression test), two collectives a
+    leaf (MAX, then SUM), and each rank's residual within half a
+    quantization step of the shared scale."""
+    grads, ranks, _ = compressed
+    for k in ("w", "b"):
+        want = grads[f"{k}1"].mean(0)
+        got = ranks[0][f"g{k}1"]
+        assert np.abs(got - want).max() / np.abs(want).max() < 0.05
+        scale = np.abs(grads[f"{k}1"]).max() / 127
+        for out in ranks:
+            assert np.abs(out[f"e{k}1"]).max() <= scale * (0.5 + 1e-5)
+    ops = [str(o).rsplit(".", 1)[1] for o in ranks[0]["ops"]]
+    assert ops == ["MAX", "SUM"] * 4          # 2 leaves x 2 steps
+
+
+def test_quantize_and_wire_bytes_match_reference(rng):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.distributed import compression as JC
+    from repro_torch.distributed import compression as C
+    g = (rng.standard_normal((40, 9)) * 0.3).astype(np.float32)
+    g[3, 4] = 127.5 * np.abs(g).max() / 127.0    # a tie to round
+    q, s = C.quantize(torch.from_numpy(g))
+    jq, js = JC.quantize(jnp.asarray(g))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    assert q.dtype == torch.int8 and float(s) == float(js)
+    np.testing.assert_array_equal(C.dequantize(q, s).numpy(),
+                                  np.asarray(JC.dequantize(jq, js)))
+    e = np.full_like(g, 0.01)
+    tq, ts, tt = C.compress_leaf(torch.from_numpy(g), torch.from_numpy(e))
+    jq2, js2, jt = JC.compress_leaf(jnp.asarray(g), jnp.asarray(e))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq2))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    tree = {"a": torch.zeros(10, 3), "b": {"c": torch.zeros(7)}}
+    assert C.wire_bytes_saved(tree) == JC.wire_bytes_saved(
+        {"a": jnp.zeros((10, 3)), "b": {"c": jnp.zeros(7)}})
+    err = C.init_error_state(tree)
+    assert all(t.dtype == torch.float32 and not t.any()
+               for t in [err.residual["a"], err.residual["b"]["c"]])
