@@ -49,7 +49,7 @@ def run(index=None, *, preset: dict | None = None, ds=None,
     """Every section's rows (also printed as CSV lines).  ``preset``
     defaults to ``P``, ``ds`` to the preset's sift dataset."""
     p = P if preset is None else preset
-    ds = dataset(p) if ds is None else ds
+    ds = dataset("sift", p) if ds is None else ds
     rows = []
     # ---- QPS vs batch
     eng = _mk(p, ds, index, device)

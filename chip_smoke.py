@@ -14,7 +14,8 @@ Phases, each printing its own lines:
 4. kernels against their plain torch versions on the card at the shapes
    the paths give them (for the gather, the ids of every launch of
    phases 5, 8 and 9, planned as the engine plans them, and of phases
-   10-14, recorded there; for
+   10-14 and 18, recorded there, with 18b's gist launches also timed
+   alone; for
    ``distance_topk``, the throughput benchmark's B=128 x N=4096 and the
    flat f32 twin of ``quant_topk``'s shape; for ``decode_attention``,
    phase 9's first decode call and a long-context shape), with times
@@ -127,17 +128,36 @@ Phases, each printing its own lines:
     through a checkpoint, and ``run_with_restarts`` with two injected
     failures against an uninterrupted run; (e)
     ``compressed_grad_reduce`` over 4 gloo ranks and 1 NCCL rank within
-    5 % of the f32 mean.
+    5 % of the f32 mean;
+18. the paper's evaluation through the port's twins of the reference's
+    benchmarks, every engine with the CUDA gather: (a) the ``quick``
+    preset (sift 20k, gist 4k at 960-d, batch 256): Fig. 6
+    (``benchmarks/torch_latency_recall.py``: naive, no_doorbell and full
+    x top-10, top-1 x ef 1..48), Tables 1-2 (``torch_breakdown.py``) and
+    the insert study (``torch_insert.py``), every counted field equal to
+    the JAX package's rows in ``benchmarks/torch_reference/
+    paper_quick.json`` (a recall within one query's share, the queries
+    whose gids differ from a CPU run printed); (b) the ``full`` preset's
+    Fig. 6 and Tables 1-2 for sift on phase 3's index and for gist at
+    20k x 960 (one host build, timed), each search's wall and host split,
+    each dataset's peak device memory: naive's round trips a query equal
+    to the route's distinct (query, partition) pairs, no_doorbell's net
+    term between naive's and full's, recall@10 at ef 48 on sift of at
+    least ``RECALL_FLOOR``; in (a) and (b) every scheme's reads go
+    through ``gather_spans``; (c) ``torch_headline.py`` on phase 3's
+    index, its full batch equal to phase 5's graph batch in gids and
+    counted stats.
 
 Phases 15-17 run right after phase 9 (the LM phases together, on a
 host not yet loaded by the pool phases' servers and threads; 17 once
-15's weights are freed), phases 10-14 after them.  The training path
+15's weights are freed), then phase 18, then phases 10-14.  The training path
 launches none of the four kernels: phase 17a reads every count at 0.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
 planned from the engine's embedding of the prompts, and the launches of
 the searches of phases 10-15 (recorded there, on the buffers they
-read); ``decode_attention`` is held at the inputs of phase 9's first
+read), and those of phase 18's twins; ``decode_attention`` is held at
+the inputs of phase 9's first
 decode call (captured there), of the first decode calls of phase 15's
 qwen3-moe (G=8), llama4-scout (G=5), zamba2 (hd=80, G=1) and whisper
 (hd=64, G=1), and at a long-context shape (B=16, S=32768); ``quant_topk`` is also held at the flat shape at k = 256 and
@@ -194,7 +214,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmarks import (torch_common, torch_ingest,  # noqa: E402
+from benchmarks import (torch_breakdown, torch_common,  # noqa: E402
+                        torch_headline, torch_ingest, torch_insert,
+                        torch_latency_recall, torch_paper_reference,
                         torch_pool, torch_quant, torch_serving,
                         torch_throughput)
 from repro_torch import DHNSWEngine, EngineConfig  # noqa: E402
@@ -245,6 +267,9 @@ from repro_torch.train.trainer import fit, run_with_restarts  # noqa: E402
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS_S = 67e12
 PEAK_BF16_FLOPS_S = 989e12      # dense tensor-core bf16
+# phase 4 times the gather's launches in runs whose outputs (one each)
+# fit in this many bytes of the card's memory
+GATHER_OUT_BYTES = 16e9
 
 # the paper's SIFT1M run is 1M x 128-d with 500 partitions; the host-side
 # index build (pure-Python HNSW, phase 3) takes 44-72 s at 100k on the
@@ -256,6 +281,9 @@ REDUCED = {"n": [1_000_000, 100_000], "n_rep": [500, 256],
                              "one layer's K/V and the plain version's f32 "
                              "copies of them on the card",
            "durable_n": [100_000, 8000],
+           "gist_n": [1_000_000, 20_000],
+           "gist_why": "the reference's full preset (benchmarks/common.py):"
+                       " the host-side index build",
            "train_n_layers": [36, 4], "train_global_batch": [256, 8],
            "train_why": "f32 masters, gradients and AdamW moments of "
                         "qwen3-8b take 131 GB at 36 layers, 32.3 GB at 4; "
@@ -653,28 +681,8 @@ def _gather_record(bufs, launches, device, timed: bool,
            "plain_ms": None, "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
            "bound_by": "bytes", "library_ms": None}
     if timed:
-        work = [([bufs[n] for n in names], ids) for names, ids in launches]
-        outs = [[torch.empty((ids.shape[0], b.shape[1]), dtype=b.dtype,
-                             device=device) for b in bs] for bs, ids in work]
-        bad = GO.flag(device)
-
-        def kern():
-            for (bs, ids), o in zip(work, outs):
-                GO._launch(bs, ids, o, bad)
-
-        def plain():
-            for bs, ids in work:
-                for b in bs:
-                    gather_blocks_ref(b, ids)
-
-        def library():
-            for bs, ids in work:
-                for b in bs:
-                    torch.index_select(b, 0, ids)
-
-        rec["ms"] = device_ms(kern, 20)
-        rec["plain_ms"] = device_ms(plain, 20)
-        rec["library_ms"] = device_ms(library, 20)
+        rec["ms"], rec["plain_ms"], rec["library_ms"] = _gather_times(
+            bufs, launches, device)
         if sweep:
             src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
             dst = torch.empty_like(src)
@@ -684,15 +692,81 @@ def _gather_record(bufs, launches, device, timed: bool,
                 f"the bound); the kernel {rec['ms']:.4f} ms, "
                 f"{copy_ms / rec['ms']:.3f} of the copy's rate")
             del src, dst
-        if bad.item():
-            raise AssertionError("gather_spans flagged an id out of range")
-    log(f"[4 kernels] gather_spans, every span read of phases 5 and 8-14 "
+    log(f"[4 kernels] gather_spans, every span read of phases 5 and 8-18 "
         f"({len(launches)} launches, "
         f"{sum(len(names) for names, _ in launches)} buffer reads): "
         + (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
            f"index_select {rec['library_ms']:.4f} ms, " if timed else "")
         + f"bound {rec['bound_ms']:.4f} ms (bytes)")
     return rec
+
+
+def _gather_times(bufs, launches, device) -> tuple:
+    """Device ms of ``launches`` (``gather_launches`` entries) back to
+    back: the kernel, the plain version and ``index_select`` a buffer at a
+    time.  Every launch writes an output of its own, so the launches are
+    timed in runs whose outputs fit in ``GATHER_OUT_BYTES``, and the runs'
+    times summed."""
+    runs, size = [[]], 0
+    for names, ids in launches:
+        out = ids.shape[0] * sum(bufs[n].shape[1] * bufs[n].element_size()
+                                 for n in names)
+        if runs[-1] and size + out > GATHER_OUT_BYTES:
+            runs.append([])
+            size = 0
+        runs[-1].append((names, ids))
+        size += out
+    return tuple(sum(t) for t in zip(*(_gather_run_times(bufs, run, device)
+                                       for run in runs)))
+
+
+def _gather_run_times(bufs, launches, device) -> tuple:
+    work = [([bufs[n] for n in names], ids) for names, ids in launches]
+    outs = [[torch.empty((ids.shape[0], b.shape[1]), dtype=b.dtype,
+                         device=device) for b in bs] for bs, ids in work]
+    bad = GO.flag(device)
+
+    def kern():
+        for (bs, ids), o in zip(work, outs):
+            GO._launch(bs, ids, o, bad)
+
+    def plain():
+        for bs, ids in work:
+            for b in bs:
+                gather_blocks_ref(b, ids)
+
+    def library():
+        for bs, ids in work:
+            for b in bs:
+                torch.index_select(b, 0, ids)
+
+    times = (device_ms(kern, 20), device_ms(plain, 20),
+             device_ms(library, 20))
+    if bad.item():
+        raise AssertionError("gather_spans flagged an id out of range")
+    return times
+
+
+def _gather_part(bufs, launches, label: str, device, timed: bool) -> None:
+    """One part of the gather's launches (``label``) timed alone beside
+    its bound (``_gather_record`` holds them against the plain version
+    with the rest)."""
+    if not launches:
+        raise AssertionError(f"gather_spans: no launch in {label}")
+    nbytes = sum(2 * ids.shape[0] * sum(bufs[n].shape[1]
+                                        * bufs[n].element_size()
+                                        for n in names) + 4 * ids.shape[0]
+                 for names, ids in launches)
+    widths = sorted({bufs[n].shape[1] * bufs[n].element_size()
+                     for names, _ in launches for n in names})
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    line = (f"[4 kernels] gather_spans {label}: {len(launches)} launches, "
+            f"rows of {widths} B, {nbytes / 1e6:.1f} MB moved | ")
+    if timed:
+        ms, plain_ms, lib_ms = _gather_times(bufs, launches, device)
+        line += (f"kernel {ms:.4f} ms ({bound / ms:.3f} of the bound), plain "
+                 f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, ")
+    log(line + f"bound {bound:.4f} ms (bytes)")
 
 
 def product_ms(q, x) -> float:
@@ -1167,7 +1241,7 @@ def wide_topk(q, codes, scales, vecs, n_valid: int, group: int,
 
 def phase_kernels(store, qstore, data, queries, launches, device, *,
                   k: int = 20, decode_shapes=(), sweep: bool = False,
-                  extra_bufs=None) -> list:
+                  extra_bufs=None, gather_parts=()) -> list:
     """Phase 4: each kernel against its plain version at the paths'
     shapes.  gather_blocks: every launch of phases 5, 8-13
     (``gather_launches``: one per span read) on its staged buffers (int32
@@ -1179,7 +1253,9 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
     the quant_topk call.  Top-k ids equal up to ties and distances within
     rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
     ``_decode_record``), when given.  ``extra_bufs`` names the buffers
-    of the launches phases 10-15 recorded.  Beside the path's calls,
+    of the launches phases 10-18 recorded; ``gather_parts`` (label,
+    buffer-name prefix) times those launches alone.  Beside the path's
+    calls,
     ``quant_topk`` is held at the flat shape at k = 256 and 1024 (the
     large-k route) and on group-2 codes of the same rows (the per-code
     scale path), and ``distance_topk`` at k = 256 (``wide_topk``).  Times
@@ -1191,6 +1267,10 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
             "scales": torch.as_tensor(qstore.qscale_buf, device=device),
             **(extra_bufs or {})}
     records = [_gather_record(bufs, launches, device, timed, sweep)]
+    for label, prefix in gather_parts:
+        _gather_part(bufs, [(names, ids) for names, ids in launches
+                            if names[0].startswith(prefix)], label, device,
+                     timed)
 
     calls = []           # the timed top-k calls, for ``topk_anatomy``
     codes, scales, vecs, n_valid = flat_view(qstore, device)
@@ -1339,9 +1419,11 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
     results must be equal).  ``gathers`` is ``main_path_gathers``' result:
     each batch must fetch the spans it planned, in one gather launch per
     round (span read), so phase 4 timed the launches made here.
-    Returns the gather launches of the path and the scan batch's stats
-    (its recall@k under ``recall_at_k``)."""
+    Returns the gather launches of the path, the scan batch's stats (its
+    recall@k under ``recall_at_k``) and each search mode's first batch
+    with the gather on (d, g, stats)."""
     launches = 0
+    batches = {}
     round_ids, n_fetches = gathers
     B, n = ds.queries.shape[0], ds.data.shape[0]
     for search_mode in ("graph", "scan"):
@@ -1354,6 +1436,7 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
         on, off = outs[True], outs[False]
         d, g, st, _, n_on = on["batches"][0]
         d0, g0, _, _, n_off = off["batches"][0]
+        batches[search_mode] = (d, g, st)
         n_launch = n_on["gather_blocks"]
         if n_off["gather_blocks"]:
             raise AssertionError("gather_blocks launched with the gather off")
@@ -1376,7 +1459,7 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
             f"{[w[0] for w in off['walls']]} (off, on, on, off) | host "
             f"split (on, first run): {_host_split(st)} | equal to gather off")
     st["recall_at_k"] = rec          # the scan batch's, phase 10's floor
-    return {"gather_blocks": launches}, st
+    return {"gather_blocks": launches}, st, batches
 
 
 def phase_int8(ds, meta, qstore, device, *, k: int, doorbell: int,
@@ -4101,6 +4184,251 @@ def phase_training(device, smi: str) -> None:
     log(f"[17] {time.perf_counter() - t17:.1f} s")
 
 
+# ------------------------------------------ the paper's evaluation (18)
+
+def _paper_cell(name: str) -> tuple:
+    """(dataset, k, mode, ef) of a paper row: ``fig6/<ds>@top<k>/<mode>/
+    ef<ef>``, ``table/<ds>@1/<mode>`` (ef 48) or ``fig6/<ds>/headline``
+    (its recall is the top-10 full row's at ef 48)."""
+    parts = name.split("/")
+    if parts[-1] == "headline":
+        return parts[1], 10, "full", 48
+    ds_name, top = parts[1].split("@")
+    ef = int(parts[3].removeprefix("ef")) if len(parts) > 3 else 48
+    return ds_name, int(top.removeprefix("top")), parts[2], ef
+
+
+def _paper_path(log_: PathLog, preset: dict, name: str, device,
+                tag: str) -> tuple:
+    """Fig. 6, then Tables 1-2 on dataset ``name`` through the twins at
+    ``preset``, as one path of ``log_``: the engines' span caches carry
+    from Fig. 6 into the tables, as under ``benchmarks/run.py``.  Prints
+    each search's wall, host split and gather launches beside the twins'
+    CSV rows.  Returns (rows, row name -> its measured search: d, g,
+    stats, wall s, gather launches)."""
+    seen = {}
+    last = [0]
+
+    def observe(row, d, g, st, wall):
+        n = GO.launches - last[0]
+        last[0] = GO.launches
+        seen[row["name"]] = dict(d=d, g=g, stats=st, wall=wall, launches=n)
+        log(f"[{tag}] {row['name']}: wall {wall:.4f} s, meta_s "
+            f"{st['meta_s']:.4f} plan_s {st['plan_s']:.4f} sub_s "
+            f"{st['sub_s']:.4f} | gather launches {n}")
+    with log_.path():
+        rows = torch_latency_recall.run((name,), preset=preset,
+                                        device=device, observe=observe)
+        rows += torch_breakdown.run((name,), preset=preset, device=device,
+                                    observe=observe)
+    return rows, seen
+
+
+def _paper_checks(seen: dict, preset: dict, device, tag: str) -> None:
+    """Naive's round trips a query are the distinct (query, partition)
+    pairs of the route over B, counted here from ``meta_route`` apart
+    from the pool's code; no-doorbell's net term lies between naive's and
+    full's at every point; on the card every scheme launched
+    ``gather_spans``."""
+    names = sorted({_paper_cell(n)[0] for n in seen})
+    for ds_name in names:
+        queries = torch_common.batched_queries(
+            torch_common.dataset(ds_name, preset), preset["batch"])
+        meta = torch_common.index(ds_name, preset)[0]
+        pids = _route(meta, queries, device, 4)
+        want = sum(len(set(r.tolist())) for r in pids) / len(queries)
+        for n, s in seen.items():
+            if _paper_cell(n)[0] == ds_name and _paper_cell(n)[2] == "naive":
+                got = s["stats"]["round_trips_per_query"]
+                if got != want:
+                    raise AssertionError(f"{tag} {n}: naive rtpq {got}, the "
+                                         f"route's distinct pairs {want}")
+    for n, s in seen.items():
+        if _paper_cell(n)[2] != "no_doorbell":
+            continue
+        net = {m: seen[n.replace("/no_doorbell", f"/{m}")]["stats"]["net"][
+            "latency_s"] for m in torch_latency_recall.MODES}
+        if not net["full"] <= net["no_doorbell"] <= net["naive"]:
+            raise AssertionError(f"{tag} {n}: net terms {net} out of order")
+    launches = {m: sum(s["launches"] for n, s in seen.items()
+                       if _paper_cell(n)[2] == m)
+                for m in torch_latency_recall.MODES}
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"{tag}: gather_spans launches by scheme "
+                             f"{launches}")
+    log(f"[{tag}] naive rtpq = the route's distinct (query, partition) "
+        f"pairs / B on {names}; no_doorbell's net between naive's and "
+        f"full's at {len(seen) // 3} points; gather launches by scheme "
+        f"{launches}")
+
+
+def _gid_diff(name: str, seen: dict, preset: dict) -> None:
+    """Print each query whose gids differ between the card's search of
+    row ``name`` and the same search on CPU tensors (the reference's
+    arithmetic), with the distances and the ground truth."""
+    ds_name, k, mode, ef = _paper_cell(name)
+    if name.endswith("/headline"):
+        name = f"fig6/{ds_name}@top10/full/ef48"
+    ds = torch_common.dataset(ds_name, preset)
+    queries = torch_common.batched_queries(ds, preset["batch"])
+    d, g, _ = torch_common.engine(ds_name, mode, preset=preset,
+                                  device="cpu").search(queries, k=k, ef=ef)
+    card = seen[name]
+    for i in range(min(len(g), len(ds.queries))):
+        if not np.array_equal(card["g"][i], g[i]):
+            log(f"[18a] {name} query {i}: card gids {card['g'][i].tolist()} "
+                f"d {card['d'][i].tolist()} | cpu gids {g[i].tolist()} d "
+                f"{d[i].tolist()} | gt {ds.gt_ids[i, :k].tolist()}")
+
+
+def _paper_against_reference(rows: list, seen: dict, preset: dict,
+                             reference: list) -> int:
+    """Every counted field of every row equal to ``reference``'s (the
+    JAX package's rows); a recall may differ by at most one query's
+    share, 1/(n k) (and its two roundings), and then the queries whose
+    gids differ from a CPU run are printed.  Returns the recalls that
+    differ."""
+    want = {r["name"]: torch_paper_reference.counted(r) for r in reference}
+    got = {r["name"]: torch_paper_reference.counted(r) for r in rows}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"18a rows {sorted(set(got) ^ set(want))} "
+                             "not in both the run and the reference")
+    n_diff = 0
+    for name, w in want.items():
+        for key, val in w.items():
+            if key == "name" or got[name][key] == val:
+                continue
+            if not key.startswith("recall"):
+                raise AssertionError(f"18a {name}: {key} {got[name][key]}, "
+                                     f"the reference's {val}")
+            ds_name, k, _, _ = _paper_cell(name)
+            n = min(preset["batch"],
+                    len(torch_common.dataset(ds_name, preset).queries))
+            log(f"[18a] {name}: {key} {got[name][key]}, the reference's "
+                f"{val} (one query's share {1 / (n * k):.5f})")
+            if abs(got[name][key] - val) > 1 / (n * k) + 1e-4:
+                raise AssertionError(f"18a {name}: {key} {got[name][key]} "
+                                     f"differs from the reference's {val} "
+                                     "by more than one query's share")
+            _gid_diff(name, seen, preset)
+            n_diff += 1
+    return n_diff
+
+
+def _paper_datasets(preset: dict, device, logs: dict, tag: str,
+                    label: str) -> tuple:
+    """``_paper_path`` on sift, then gist, at ``preset``, each a path of
+    its own ``PathLog`` (``logs[label.<dataset>]``); prints each one's
+    time, its index build (on the host, timed; none for an index handed
+    in) and its peak device memory.  Returns (rows, searches)."""
+    rows, seen = [], {}
+    for name in ("sift", "gist"):
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        logs[f"{label}.{name}"] = PathLog(device)
+        r, s = _paper_path(logs[f"{label}.{name}"], preset, name, device,
+                           tag)
+        rows += r
+        seen.update(s)
+        peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+                if device.type == "cuda" else "not measured (CPU)")
+        build = torch_common.index(name, preset)[3]
+        log(f"[{tag} {name}] {torch_common.dataset(name, preset).data.shape}"
+            f": {len(r)} rows in {time.perf_counter() - t0:.1f} s, "
+            + ("index handed in" if build is None else
+               f"the host index build {build:.1f} s of it")
+            + f" | peak device memory {peak}")
+    return rows, seen
+
+
+def phase_paper_headline(ds, meta, store, device, log_: PathLog, *,
+                         graph_batch) -> None:
+    """Phase 18c: ``benchmarks/torch_headline.py`` on phase 3's index.
+    Its ``full`` batch runs on a fresh engine in phase 5's graph
+    configuration, so its gids and counted stats must equal phase 5's
+    graph batch (``graph_batch``: d, g, stats)."""
+    with log_.path() as n:
+        res = torch_headline.run(index=(meta, store), ds=ds, device=device)
+    d5, g5, st5 = graph_batch
+    f = res["full"]
+    if not (np.array_equal(f["g"], g5) and _counted_equal(f["stats"], st5)):
+        raise AssertionError("18c: the headline's full batch differs from "
+                             "phase 5's graph batch")
+    net = {m: r["stats"]["net"]["latency_s"] for m, r in res.items()}
+    log(f"[18c headline] recall@10 {f['recall']:.4f} | rtpq "
+        + ", ".join(f"{m} {r['stats']['round_trips_per_query']:.5f}"
+                    for m, r in res.items())
+        + f" | naive/full net {net['naive'] / net['full']:.1f}x | beside "
+        "headline_full.py's docstring (the JAX package on a CPU, not a "
+        "card): recall@10 ~0.86, rtpq 4.0 -> 0.01, ~32x | wall s a batch "
+        + ", ".join(f"{m} {r['wall']:.4f} ({_host_split(r['stats'])})"
+                    for m, r in res.items())
+        + f" | full batch = phase 5's graph batch: gids, counted stats"
+        + (", distances" if np.array_equal(f["d"], d5) else "")
+        + f" | gather launches {n['gather_blocks']}")
+
+
+def phase_paper(ds, meta, store, device, *, graph_batch, quick=None,
+                full=None, reference=None,
+                recall_floor: float = RECALL_FLOOR) -> tuple:
+    """Phase 18: the paper's evaluation through the port's twins.  (a)
+    the ``quick`` preset (``quick``; sift 20k, gist 4k, batch 256): Fig.
+    6, Tables 1-2 and insert, every counted field equal to ``reference``
+    (default: the committed ``benchmarks/torch_reference/
+    paper_quick.json``); (b) the ``full`` preset (``full``): Fig. 6 and
+    Tables 1-2 for sift on phase 3's index and for gist (20k x 960, one
+    host build, timed), ``_paper_checks``, recall@10 at ef 48 on sift of
+    at least ``recall_floor``, each dataset's peak device memory; (c) the
+    headline run.  Every search gathers through ``gather_spans``; the
+    calls are recorded for phase 4.  Returns (launches, the recorded
+    gather launches as ``gather_launches`` entries, their buffers)."""
+    t18 = time.perf_counter()
+    quick = torch_common.PRESETS["quick"] if quick is None else quick
+    full = torch_common.PRESETS["full"] if full is None else full
+    reference = (torch_paper_reference.load()["rows"] if reference is None
+                 else reference)
+    logs = {}
+    torch_common.clear()
+    rows, seen = _paper_datasets(quick, device, logs, "18a", "quick")
+    logs["quick.insert"] = PathLog(device)
+    t0 = time.perf_counter()
+    with logs["quick.insert"].path():
+        rows += torch_insert.run(preset=quick, device=device)
+    log(f"[18a insert] {time.perf_counter() - t0:.1f} s with its build")
+    _paper_checks(seen, quick, device, "18a")
+    n_diff = _paper_against_reference(rows, seen, quick, reference)
+    log(f"[18a] {len(rows)} rows: every counted field equal to the "
+        f"reference's ({n_diff} recalls within one query's share) | "
+        f"{time.perf_counter() - t18:.1f} s")
+
+    torch_common.clear()
+    torch_common.adopt_index("sift", ds, meta, store, preset=full)
+    rows, seen = _paper_datasets(full, device, logs, "18b", "full")
+    _paper_checks(seen, full, device, "18b")
+    rec = seen["fig6/sift@top10/full/ef48"]
+    got = next(r["recall"] for r in rows
+               if r["name"] == "fig6/sift@top10/full/ef48")
+    if got < recall_floor:
+        raise AssertionError(f"18b sift recall@10 at ef 48 {got}")
+    log(f"[18b] sift recall@10 at ef 48 {got} >= {recall_floor} | full "
+        f"batch wall {rec['wall']:.4f} s")
+    torch_common.clear()
+
+    logs["headline"] = PathLog(device)
+    phase_paper_headline(ds, meta, store, device, logs["headline"],
+                         graph_batch=graph_batch)
+    launches = {name: sum(lg.launches[name] for lg in logs.values())
+                for name in KERNEL_OPS}
+    bufs, recorded = {}, []
+    for tag, lg in logs.items():
+        recorded += recorded_launches(lg.calls, bufs, f"paper.{tag}.")
+    _free(device)
+    log(f"[18] {time.perf_counter() - t18:.1f} s | launches {launches}")
+    return launches, recorded, bufs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -4118,7 +4446,7 @@ def main(argv=None) -> int:
     pair_gathers = {mode: pair_path_gathers(
         meta, qstore, ds.queries, device, doorbell=FULL["doorbell"],
         search_mode=mode, n_batches=PAIR_BATCHES) for mode in ("scan", "graph")}
-    launches, scan_stats = phase_exact(
+    launches, scan_stats, exact_batches = phase_exact(
         ds, meta, store, device, k=FULL["k"], doorbell=FULL["doorbell"],
         gathers=gathers, recall_floor=RECALL_FLOOR)
     launches.update(phase_int8(ds, meta, qstore, device, k=FULL["k"],
@@ -4156,6 +4484,8 @@ def main(argv=None) -> int:
     phase_sharded_store(store, gathers[0][0].cpu().numpy(), device,
                         **SHARD_STORE)
     phase_training(device, dev_info["smi"])
+    paper_launches, paper_recorded, paper_bufs = phase_paper(
+        ds, meta, store, device, graph_batch=exact_batches["graph"])
     ins_launches, ins_recorded, ins_bufs = phase_insert(
         ds, meta, store, qstore, device, k=FULL["k"],
         doorbell=FULL["doorbell"], scan_recall=scan_stats["recall_at_k"])
@@ -4186,9 +4516,11 @@ def main(argv=None) -> int:
                                       "pool.")
     for name in launches:
         launches[name] += (ins_launches[name] + load_launches[name]
-                           + fams.launches[name] + pools.launches[name])
+                           + fams.launches[name] + pools.launches[name]
+                           + paper_launches[name])
     planned = gather_launches(gathers, pair_gathers, rag_gathers,
-                              ins_recorded + load_recorded + pool_recorded)
+                              ins_recorded + load_recorded + pool_recorded
+                              + paper_recorded)
     if launches["gather_blocks"] != len(planned):
         raise AssertionError(f"{launches['gather_blocks']} gather launches on "
                              f"the main path, {len(planned)} span reads "
@@ -4208,7 +4540,9 @@ def main(argv=None) -> int:
                                     dtype=q.dtype, device=device))],
                             sweep=args.sweep,
                             extra_bufs={**ins_bufs, **load_bufs,
-                                        **pool_bufs})
+                                        **pool_bufs, **paper_bufs},
+                            gather_parts=[("18b gist (960-d rows)",
+                                           "paper.full.gist.")])
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] <= 0:

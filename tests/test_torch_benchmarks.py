@@ -137,7 +137,7 @@ def test_torch_throughput_serves_a_prebuilt_index(benchmarks):
     _, torch_throughput = benchmarks
     from repro_torch import DHNSWEngine, EngineConfig
     preset = dict(torch_throughput.P, **TINY)
-    ds = torch_throughput.dataset(preset)
+    ds = torch_throughput.dataset("sift", preset)
     eng = DHNSWEngine(EngineConfig(n_rep=TINY["n_rep"], seed=0),
                       device="cpu").build(ds.data)
     index = (eng.meta, eng.store, ds.data)

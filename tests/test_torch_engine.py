@@ -275,8 +275,10 @@ def test_chip_smoke_phases_on_cpu(chip_smoke):
         assert len(batches) == 4 and batches[0][0]
         assert all(sum(len(i) for i in ids) == n * store.spec.fetch_blocks
                    for ids, n in batches)
-    exact, scan_stats = cs.phase_exact(ds, meta, store, cpu, k=10,
-                                       doorbell=16, gathers=gathers)
+    exact, scan_stats, batches = cs.phase_exact(ds, meta, store, cpu, k=10,
+                                                doorbell=16, gathers=gathers)
+    assert set(batches) == {"graph", "scan"}
+    assert batches["scan"][2] is scan_stats
     q8 = cs.phase_int8(ds, meta, qstore, cpu, k=10, doorbell=16)
     tiny = dict(cs.torch_common.PRESETS["quick"], sift_n=1000, n_queries=32,
                 batch=32, n_rep=8)
@@ -331,9 +333,10 @@ def test_chip_smoke_insert_and_load_phases_on_cpu(chip_smoke):
     cpu = torch.device("cpu")
     ds, meta, store, qstore = cs.phase_index(1000, 32, 8)
     vec0 = store.vec_buf.copy()
-    _, scan = cs.phase_exact(ds, meta, store, cpu, k=10, doorbell=16,
-                             gathers=cs.main_path_gathers(
-                                 meta, store, ds.queries, cpu, doorbell=16))
+    _, scan, _ = cs.phase_exact(ds, meta, store, cpu, k=10, doorbell=16,
+                                gathers=cs.main_path_gathers(
+                                    meta, store, ds.queries, cpu,
+                                    doorbell=16))
     ins, rec, bufs = cs.phase_insert(ds, meta, store, qstore, cpu, k=10,
                                      doorbell=16,
                                      scan_recall=scan["recall_at_k"],
