@@ -146,11 +146,37 @@ Phases, each printing its own lines:
     least ``RECALL_FLOOR``; in (a) and (b) every scheme's reads go
     through ``gather_spans``; (c) ``torch_headline.py`` on phase 3's
     index, its full batch equal to phase 5's graph batch in gids and
-    counted stats.
+    counted stats;
+19. the mesh: (a) host only, in a subprocess on the fake backend (one
+    process playing every rank, nothing on the card):
+    ``launch/dryrun.py``'s cells of qwen3-8b and qwen3-moe-30b-a3b x
+    train_4k, prefill_32k, decode_32k x the (16, 16) and (2, 16, 16)
+    meshes and ``launch/dryrun_dhnsw.py``'s six variants on both, every
+    spec and per-device byte count, the decode cells' totals (the
+    reference's compiled ``argument_size_bytes``) and the d-HNSW rows'
+    collective operand and wire bytes equal to the JAX package's in
+    ``benchmarks/torch_reference/dryrun.json``; then, on a host mesh of
+    one NCCL rank, (b) ``make_step`` of phase 17a's train cell, its loss,
+    metrics and every updated param and moment bit for bit against the
+    unmeshed step from the same weights and batch, s a step beside
+    17a's; (c) ``make_prefill_step`` and ``make_decode_step`` with
+    qwen3-8b at full width and depth, 8 prompts of 1024 tokens and 32
+    greedy steps, every token equal to the unmeshed path's, every
+    decode layer through ``decode_attention``; (d) ``moe._moe_shardmap``
+    over 4 gloo rank processes on the card on (data, model) meshes (1, 4)
+    and (2, 2) at qwen3-moe's width (one layer, 8 x 1024 tokens, bf16):
+    routing equal to a plain version's in this process and y within the
+    bf16 rounding of the sum of the ranks' shares, ms a call; (e)
+    ``dryrun_dhnsw.make_step`` run for real at SIFT1M geometry (the 721
+    MB f32 / 180 MB int8 store) over 4 gloo ranks on a (1, 4) mesh, all
+    six variants: top-k ids equal to a one-rank run's up to ties, the
+    counted all-reduce operand bytes equal to the dry run's of the same
+    mesh, ms a step.
 
 Phases 15-17 run right after phase 9 (the LM phases together, on a
 host not yet loaded by the pool phases' servers and threads; 17 once
-15's weights are freed), then phase 18, then phases 10-14.  The training path
+15's weights are freed), then phase 19 (its train step once 17a's
+state is freed), then phase 18, then phases 10-14.  The training path
 launches none of the four kernels: phase 17a reads every count at 0.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
@@ -213,12 +239,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from benchmarks import (torch_breakdown, torch_common,  # noqa: E402
-                        torch_headline, torch_ingest, torch_insert,
-                        torch_latency_recall, torch_paper_reference,
-                        torch_pool, torch_quant, torch_serving,
-                        torch_throughput)
+                        torch_dryrun_reference, torch_headline,
+                        torch_ingest, torch_insert, torch_latency_recall,
+                        torch_paper_reference, torch_pool, torch_quant,
+                        torch_serving, torch_throughput)
 from repro_torch import DHNSWEngine, EngineConfig  # noqa: E402
 from repro_torch.core import device_store as DS  # noqa: E402
 from repro_torch.core import layout as LA  # noqa: E402
@@ -243,6 +270,7 @@ from repro_torch.kernels.gather_blocks.ref import gather_blocks_ref  # noqa: E40
 from repro_torch.kernels.quant_topk import ops as QO  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import (  # noqa: E402
     dequantize_ref, ids_agree_up_to_ties, quant_topk_ref)
+from repro_torch.launch import dryrun_dhnsw  # noqa: E402
 from repro_torch.models import flash as FL  # noqa: E402
 from repro_torch.models import layers as LY  # noqa: E402
 from repro_torch.models import model as LM  # noqa: E402
@@ -352,6 +380,30 @@ TRAIN_SMOKE = dict(batch=4, seq=32)
 F32_TRAIN, ADAM_STEP_TOL = 1e-5, 1e-3
 COMPRESS = dict(world=4, shapes=((4096, 1024), (151_936,), (8, 128)))
 COMPRESS_TOL = 0.05
+# phase 19, the mesh: (a) the dry runs of these archs x shapes x both
+# production meshes and of the six d-HNSW variants (host only, the fake
+# backend); (b) 17a's geometry and (c) phase 9's (8 prompts of 1024
+# tokens, the prefill's S, and 32 greedy steps) through the meshed steps
+# on a host mesh of one NCCL rank; (d) _moe_shardmap over 4 gloo ranks on
+# the card at qwen3-moe's width, one layer of 8 x 1024 tokens; y within
+# MOE_TOL (bf16's unit roundoff) x the number of shares x the sum of
+# their magnitudes; (e) the d-HNSW step at SIFT1M geometry over 4 ranks
+MESH_ARCHS = ("qwen3-8b", "qwen3-moe-30b-a3b")
+MESH_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+MESH_TRAIN_STEPS = 2         # 19b's timed steps after the checked one
+MESH_SERVE = dict(batch=8, seq=1024, steps=32)
+# 19d's runs: (data, model, seed offset, dtype; None: the config's
+# bf16): both meshes, then a second seed and the f32 layer on (1, 4),
+# which show the bf16 gap to be rounding and not a mis-ordered sum
+MESH_MOE = dict(batch=8, seq=1024, iters=5,
+                runs=((1, 4, 0, None), (2, 2, 0, None), (1, 4, 1, None),
+                      (1, 4, 0, "float32")))
+MOE_TOL = 2.0 ** -8
+# the f32 run's bound, of the largest sum of the shares' magnitudes: the
+# ranks' products and sums run in other orders than the plain version's
+MOE_TOL_F32 = 1e-5
+MESH_DHNSW = dict(world=4, iters=10)
+MESH_SMOKE = False           # the CPU test's smoke sizes (never on the card)
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
 # they differ by at most one step of each element); in f32 at the gpu
@@ -4170,10 +4222,11 @@ def phase_compression(device, *, world: int, shapes) -> None:
         log(f"[17e] {time.perf_counter() - t0:.1f} s with the ranks' start")
 
 
-def phase_training(device, smi: str) -> None:
-    """Phase 17: the training path and its checks (a)-(e)."""
+def phase_training(device, smi: str) -> dict:
+    """Phase 17: the training path and its checks (a)-(e).  Returns
+    17a's numbers."""
     t17 = time.perf_counter()
-    phase_train(device, smi, arch=TRAIN_ARCH, **TRAIN)
+    out = phase_train(device, smi, arch=TRAIN_ARCH, **TRAIN)
     states = phase_train_families(device, **TRAIN_SMOKE)
     phase_train_converge(device, **TRAIN_SMOKE)
     phase_train_restarts(device, states, **TRAIN_SMOKE)
@@ -4182,6 +4235,683 @@ def phase_training(device, smi: str) -> None:
     phase_compression(device, **COMPRESS)
     _reset_launches()
     log(f"[17] {time.perf_counter() - t17:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------- the mesh (19)
+
+# one process of phase 19a: argv = src dir, archs, shapes; the dry runs of
+# the cells on both production meshes and the d-HNSW variants on both and
+# on a (1, 4) mesh (19e's), each a JSON line, all on the fake backend
+MESH_DRYRUN = r"""
+import json, logging, sys, time
+sys.path.insert(0, sys.argv[1])
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.base import SHAPES
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import dryrun as D, dryrun_dhnsw as H
+from repro_torch.launch.mesh import fake_world
+from repro_torch.models.params import AbstractMesh
+MESHES = {"single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model"))}
+for arch in sys.argv[2].split(","):
+    for sid in sys.argv[3].split(","):
+        for mp in (False, True):
+            t = time.perf_counter()
+            r = D.run_cell(arch, sid, mp)
+            r["wall_s"] = time.perf_counter() - t
+            r["specs"] = D.cell_specs(
+                get_config(arch), SHAPES[sid],
+                AbstractMesh(*MESHES["multi" if mp else "single"]),
+                r["micro_steps"])
+            print("CELL " + json.dumps(r), flush=True)
+for mp in (False, True):
+    for v in H.VARIANTS:
+        t = time.perf_counter()
+        r = H.run(v, mp)
+        r["wall_s"] = time.perf_counter() - t
+        print("DHNSW " + json.dumps(r), flush=True)
+fake_world(%(world)d)
+mesh = init_device_mesh("cpu", (1, %(world)d), mesh_dim_names=("data", "model"))
+for v in H.VARIANTS:
+    print("DHNSW14 " + json.dumps({"variant": v, **H.count(mesh, v)}),
+          flush=True)
+"""
+
+# one rank of phase 19d: argv = src dir, rank, tmp dir, data, model,
+# iters, device, smoke (1: the smoke config), batch, seq, seed, dtype
+# ("-": the config's), tag; writes moe_<tag>_rank<rank>.npz
+MESH_MOE_RANK = r"""
+import sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+rank, tmp = int(sys.argv[2]), sys.argv[3]
+data, model, iters = int(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6])
+dev, smoke = sys.argv[7], sys.argv[8] == "1"
+batch, seq = int(sys.argv[9]), int(sys.argv[10])
+seed, dtype, tag = int(sys.argv[11]), sys.argv[12], sys.argv[13]
+if dev == "cuda":
+    torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv_moe_{tag}",
+                        world_size=data * model, rank=rank)
+from torch.distributed.device_mesh import init_device_mesh
+sys.path.insert(0, sys.argv[1] + "/..")
+import chip_smoke as CS
+from repro_torch.models import moe as MOE
+from repro_torch.models.params import NamedSharding, P, local_part, param_shardings
+mesh = init_device_mesh(dev, (data, model), mesh_dim_names=("data", "model"))
+cfg, p, x = CS.moe_inputs(torch.device(dev), smoke, batch, seq, seed=seed,
+                          dtype=None if dtype == "-" else dtype)
+sh = param_shardings(MOE.moe_param_defs(cfg, (), ()), mesh)
+loc = {k: local_part(v, sh[k]).contiguous() for k, v in p.items()}
+del p
+x = local_part(x, NamedSharding(mesh, P("data", None, None))).contiguous()
+assert MOE.use_shardmap(cfg, mesh)
+routes = []
+real = MOE._route
+
+
+def capture(*a):
+    out = real(*a)
+    routes.append(out[1])
+    return out
+
+
+with torch.no_grad():
+    MOE._route = capture
+    y, _ = MOE._moe_shardmap(cfg, loc, x, mesh)
+    MOE._route = real
+    CS._sync(x.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        MOE._moe_shardmap(cfg, loc, x, mesh)
+    CS._sync(x.device)
+ms = (time.perf_counter() - t0) / iters * 1e3
+np.savez(f"{tmp}/moe_{tag}_rank{rank}.npz",
+         y=y.float().cpu().numpy(), top_i=routes[0].cpu().numpy(), ms=ms,
+         experts=loc["we_g"].shape[0], ff=loc["we_g"].shape[2])
+dist.destroy_process_group()
+"""
+
+# one rank of phase 19e: argv = src dir, rank, tmp dir, world, iters,
+# device, small (1: ``dhnsw_small``'s store); writes dhnsw_rank<rank>.npz
+MESH_DHNSW_RANK = r"""
+import sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+rank, tmp = int(sys.argv[2]), sys.argv[3]
+world, iters, dev = int(sys.argv[4]), int(sys.argv[5]), sys.argv[6]
+if dev == "cuda":
+    torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv_dhnsw",
+                        world_size=world, rank=rank)
+from torch.distributed.device_mesh import init_device_mesh
+sys.path.insert(0, sys.argv[1] + "/..")
+import chip_smoke as CS
+if sys.argv[7] == "1":
+    CS.dhnsw_small()
+mesh = init_device_mesh(dev, (1, world), mesh_dim_names=("data", "model"))
+out = CS.dhnsw_steps(mesh, torch.device(dev), iters)
+np.savez(f"{tmp}/dhnsw_rank{rank}.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+def _spawn(code: str, args_of, n: int, what: str, tmp: str,
+           out_of) -> list:
+    """Run ``n`` processes of ``code`` (argv: the src dir, then
+    ``args_of(rank)``); each must leave ``out_of(rank)`` under ``tmp``.
+    A process that exits without it fails the phase."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT / "src"), *map(str, args_of(r))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=600)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        path = Path(tmp) / out_of(r)
+        if not path.exists():
+            raise AssertionError(f"{what} rank {r} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+        out.append(dict(np.load(path)))
+    return out
+
+
+def phase_mesh_dryrun() -> dict:
+    """Phase 19a, host-only: ``launch/dryrun.py``'s cells and
+    ``launch/dryrun_dhnsw.py``'s variants on the fake backend (one
+    subprocess playing every rank; nothing on the card), held to the
+    JAX package's numbers in ``benchmarks/torch_reference/dryrun.json``:
+    every spec and per-device byte count of the cells, the decode cells'
+    totals against the reference's compiled ``argument_size_bytes``, and
+    the d-HNSW rows' collective operand and wire bytes.  Returns the
+    (1, 4) mesh's d-HNSW counts for 19e."""
+    t0 = time.perf_counter()
+    archs, shapes = MESH_ARCHS, MESH_SHAPES
+    out = subprocess.run(
+        [sys.executable, "-c", MESH_DRYRUN % {"world": MESH_DHNSW["world"]},
+         str(ROOT / "src"), ",".join(archs), ",".join(shapes)],
+        capture_output=True, text=True, timeout=900)
+    if out.returncode:
+        raise AssertionError(f"19a dry run exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    ref = torch_dryrun_reference.load()
+    want_h = {(r["cell"], r["mesh"]): r for r in ref["dhnsw"]}
+    n_cells, counts = 0, {}
+    for line in out.stdout.splitlines():
+        kind, _, body = line.partition(" ")
+        if kind not in ("CELL", "DHNSW", "DHNSW14"):
+            continue
+        r = json.loads(body)
+        if kind == "DHNSW14":
+            counts[r["variant"]] = r
+            continue
+        if kind == "DHNSW":
+            want = want_h[(r["cell"], r["mesh"])]
+            bad = [k for k in torch_dryrun_reference.DHNSW_FIELDS
+                   if r[k] != want[k]]
+            if bad:
+                raise AssertionError(f"19a {r['cell']} {r['mesh']}: {bad} "
+                                     f"differ from the reference's")
+            log(f"[19a dry run] {r['cell']} {r['mesh']}: all-reduce "
+                f"operand {r['coll_kinds']} B, wire {r['wire_dev']:.0f} B a "
+                f"device, {r['n_collectives']} collective(s), args "
+                f"{r['arg_bytes']} B (= the reference's); flops "
+                f"{r['flops_dev']:.4g}, bytes {r['bytes_dev']:.4g}, "
+                f"t_compute {r['t_compute']:.3g} s t_memory "
+                f"{r['t_memory']:.3g} s t_collective {r['t_collective']:.3g}"
+                f" s (H100 peaks), {r['dominant']} | traced in "
+                f"{r['wall_s']:.2f} s")
+            continue
+        if r["status"] != "ok":
+            raise AssertionError(f"19a {r['arch']} {r['shape']} {r['mesh']}:"
+                                 f" {r.get('error', r['status'])}")
+        key = f"{r['arch']}|{r['shape']}|{r['mesh']}"
+        want = ref["cells"][key]
+        mem = {k: r["memory"][k] for k in want["memory"]}
+        if mem != want["memory"] or r["specs"] != want["specs"]:
+            raise AssertionError(f"19a {key}: specs or bytes {mem} differ "
+                                 f"from the reference's {want['memory']}")
+        if ("compiled_argument_size_bytes" in want
+                and mem["argument_size_bytes"]
+                != want["compiled_argument_size_bytes"]):
+            raise AssertionError(f"19a {key}: {mem['argument_size_bytes']} "
+                                 f"argument bytes, the reference compiled "
+                                 f"{want['compiled_argument_size_bytes']}")
+        c = r["collectives"]
+        n_cells += 1
+        log(f"[19a dry run] {key}: {r['n_devices']} ranks, params "
+            f"{mem['param_bytes']} opt {mem['opt_bytes']} cache "
+            f"{mem['cache_bytes']} inputs {mem['input_bytes']} = "
+            f"{mem['argument_size_bytes']} B a device (= the reference's"
+            + (", = its compiled argument size" if
+               "compiled_argument_size_bytes" in want else "")
+            + f"; {len(r['specs'])} specs equal); working set "
+            f"{r['memory']['working_set_bytes']:.6g} B a device (the "
+            f"arguments + {r['memory']['peak_transient_bytes']:.6g} B at the "
+            f"traced step's peak); flops {r['cost']['flops']:.4g}"
+            f" a device (model FLOPs / devices "
+            f"{r['model_flops'] / r['n_devices']:.4g}), collectives "
+            f"{c['n_collectives']} ({ {k: f'{v:.4g}' for k, v in c['operand_bytes_by_kind'].items()} }"
+            f" B), wire {c['wire_bytes_per_device']:.4g} B a device; "
+            f"micro-steps {r['micro_steps']}; traced at units "
+            f"{r['traced_units']['traced']} of {r['traced_units']['units']} "
+            f"in {r['trace_s']} s ({r['wall_s']:.2f} s with the bytes)")
+    if n_cells != len(archs) * len(shapes) * 2 or len(counts) != 6:
+        raise AssertionError(f"19a: {n_cells} cells, {len(counts)} (1, 4) "
+                             f"counts")
+    log(f"[19a] {n_cells} cells and 12 d-HNSW rows equal to the reference's "
+        f"| host only (fake backend, FakeTensorMode) | "
+        f"{time.perf_counter() - t0:.1f} s with the process's start")
+    return counts
+
+
+def _as_dtensor(t, mesh, sharding):
+    """``t`` as the DTensor ``sharding`` places on a mesh of one rank,
+    sharing its storage (the whole tensor is the rank's shard)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, sharding.placements, run_check=False)
+
+
+def phase_mesh_train(device, mesh, smi: str, *, step_17a: float,
+                     arch: str, n_layers: int, seq: int, batch: int,
+                     micro_steps: int, steps: int) -> None:
+    """Phase 19b: ``make_step`` of a train cell on ``mesh`` (the host
+    mesh of one NCCL rank) at phase 17a's geometry, against the unmeshed
+    step from the same seeded weights and batch: the loss, the metrics
+    and every updated param and moment bit for bit; then s a step."""
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    shape = InputShape("train_4k", seq, batch, "train")
+    _free(device)
+    stream = token_stream(cfg.vocab_size, batch, seq, seed=SEED)
+    b = _on(next(stream), device)
+
+    def fresh():
+        p = PR.init_params(LM.param_defs(cfg), torch.Generator(
+            device=device).manual_seed(SEED))
+        return p, ADAMW.init(p)
+    t0 = time.perf_counter()
+    params, opt = fresh()
+    step = TS.make_train_step(cfg, shape, micro_steps=micro_steps)
+    _sync(device)
+    t = time.perf_counter()
+    params, opt, m = step(params, opt, b)
+    _sync(device)
+    plain_s = time.perf_counter() - t
+    want_m = {k: float(v) for k, v in m.items()}
+    want = [x.cpu() for x in TREE.leaves((params, opt))]
+    del params, opt, step, m
+    _free(device)
+    step, (p_sh, o_sh, b_sh), _, _ = TS.make_step(cfg, shape, mesh,
+                                                  micro_steps=micro_steps)
+    params, opt = fresh()
+    params = TREE.tree_map(lambda x, s: _as_dtensor(x, mesh, s), params, p_sh)
+    opt = ADAMW.AdamWState(
+        _as_dtensor(opt.step, mesh, o_sh.step),
+        TREE.tree_map(lambda x, s: _as_dtensor(x, mesh, s), opt.m, o_sh.m),
+        TREE.tree_map(lambda x, s: _as_dtensor(x, mesh, s), opt.v, o_sh.v))
+    db = {k: _as_dtensor(v, mesh, b_sh[k]) for k, v in b.items()}
+    _reset_launches()
+    _sync(device)
+    t = time.perf_counter()
+    params, opt, m = step(params, opt, db)
+    _sync(device)
+    first_s = time.perf_counter() - t
+    got_m = {k: float(v) for k, v in m.items()}
+    if got_m != want_m:
+        raise AssertionError(f"19b metrics {got_m} vs unmeshed {want_m}")
+    leaves = [x.to_local() for x in TREE.leaves((params, opt))]
+    diff = [i for i, (x, w) in enumerate(zip(leaves, want))
+            if not torch.equal(x.cpu(), w)]
+    if diff:
+        raise AssertionError(f"19b: {len(diff)} of {len(want)} leaves "
+                             f"differ from the unmeshed step's")
+    del want
+    times = []
+    for _ in range(steps):
+        db = {k: _as_dtensor(v, mesh, b_sh[k])
+              for k, v in _on(next(stream), device).items()}
+        _sync(device)
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, db)
+        _sync(device)
+        times.append(time.perf_counter() - t)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"19b: loss {float(m['loss'])}")
+    launches = _launches()
+    log(f"[19b mesh train] make_step on the host mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (1 "
+        f"{dist.get_backend()} rank) at "
+        f"17a's geometry ({cfg.name}, {n_layers} layers, {batch} x {seq} in "
+        f"{micro_steps} micro-steps): loss {got_m['loss']:.6f} grad_norm "
+        f"{got_m['grad_norm']:.6f}, metrics and all {len(leaves)} params and "
+        f"moments after the step equal the unmeshed step's bit for bit | "
+        f"{float(np.mean(times)):.4f} s a step meshed (steps "
+        f"{[f'{x:.4f}' for x in times]}, the first {first_s:.4f} s) against "
+        f"17a's {step_17a:.4f} s (the unmeshed first step here "
+        f"{plain_s:.4f} s); launches {launches} | {smi} | "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, opt, step, leaves
+    _free(device)
+
+
+def phase_mesh_serve(device, mesh, *, arch: str, batch: int, seq: int,
+                     steps: int) -> int:
+    """Phase 19c: ``make_prefill_step`` and ``make_decode_step`` on
+    ``mesh`` at ``arch``'s full width and depth in phase 9's geometry
+    (``batch`` prompts of ``seq`` tokens, ``steps`` greedy decode
+    steps), the serving weights (``serve_param_defs``: bf16) drawn from a
+    seed, against ``model.prefill`` / ``model.decode_step`` unmeshed on
+    the same tensors: every token equal.  Returns the meshed path's
+    ``decode_attention`` launches (every layer of every decode step)."""
+    cfg = get_config(arch)
+    _free(device)
+    t0 = time.perf_counter()
+    params = PR.init_params(LM.serve_param_defs(cfg), torch.Generator(
+        device=device).manual_seed(SEED))
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=device, dtype=torch.int32)
+    total = seq + steps
+
+    def at(i):
+        return torch.full((batch,), seq + i, dtype=torch.int32, device=device)
+
+    with torch.no_grad():
+        _sync(device)
+        t = time.perf_counter()
+        logits, cache = LM.prefill(cfg, params, {"tokens": toks}, total)
+        want = [logits[:, -1].argmax(-1).to(torch.int32)]
+        for i in range(steps):
+            logits, cache = LM.decode_step(cfg, params, cache, want[-1], at(i))
+            want.append(logits.argmax(-1).to(torch.int32))
+        _sync(device)
+        plain_s = time.perf_counter() - t
+        del cache, logits
+        pre, (p_sh, b_sh), _, _ = TS.make_prefill_step(
+            cfg, InputShape("prefill", seq, batch, "prefill"), mesh)
+        dec, (_, c_sh, t_sh, q_sh), _, (_, c_abs, _, _) = \
+            TS.make_decode_step(cfg, InputShape("decode", total, batch,
+                                                "decode"), mesh)
+        dparams = TREE.tree_map(lambda x, s: _as_dtensor(x, mesh, s), params,
+                                p_sh)
+        _reset_launches()
+        _sync(device)
+        t = time.perf_counter()
+        logits, short = pre(dparams, {"tokens": _as_dtensor(
+            toks, mesh, b_sh["tokens"])})
+        cache = []
+        for c, s, a in zip(short, c_sh, c_abs):   # into a cache of `total`
+            full = torch.zeros(a.shape, dtype=a.dtype, device=device)
+            full[:, :, :seq] = c.to_local()
+            cache.append(_as_dtensor(full, mesh, s))
+        del short
+        got = [logits.to_local()[:, -1].argmax(-1).to(torch.int32)]
+        t_pre = time.perf_counter() - t
+        for i in range(steps):
+            logits, cache = dec(dparams, tuple(cache),
+                                _as_dtensor(got[-1], mesh, t_sh),
+                                _as_dtensor(at(i), mesh, q_sh))
+            got.append(logits.to_local().argmax(-1).to(torch.int32))
+        _sync(device)
+        mesh_s = time.perf_counter() - t
+        launches = _launches()
+    want, got = torch.stack(want, 1), torch.stack(got, 1)
+    if not torch.equal(want, got):
+        raise AssertionError(f"19c: {int((want != got).sum())} of "
+                             f"{want.numel()} tokens differ from the "
+                             f"unmeshed path's")
+    want_da = cfg.n_layers * steps if device.type == "cuda" else 0
+    if launches["decode_attention"] != want_da:
+        raise AssertionError(f"19c: {launches['decode_attention']} "
+                             f"decode_attention launches, {want_da} layers "
+                             f"x steps")
+    log(f"[19c mesh serve] make_prefill_step + make_decode_step on the host "
+        f"mesh at {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"bf16 serving weights), {batch} prompts x {seq} tokens, {steps} "
+        f"greedy steps: all {got.numel()} tokens equal to the unmeshed "
+        f"model.prefill / decode_step's | meshed {mesh_s:.3f} s (prefill "
+        f"{t_pre:.3f} s) vs unmeshed {plain_s:.3f} s; launches {launches} | "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, dparams, cache, logits
+    _free(device)
+    return launches["decode_attention"]
+
+
+def moe_inputs(device, smoke: bool, batch: int, seq: int, *,
+               seed: int = SEED, dtype=None) -> tuple:
+    """Phase 19d's layer, the same in every process: qwen3-moe-30b-a3b's
+    router and experts (f32, drawn from ``seed`` on ``device``; its smoke
+    config with ``smoke``; its compute dtype ``dtype`` where given) and
+    an input of ``batch`` x ``seq`` tokens in its compute dtype."""
+    cfg = (smoke_config if smoke else get_config)(MOE_ARCH)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = PR.init_params(MOE.moe_param_defs(cfg, (), ()), gen)
+    x = torch.randn((batch, seq, cfg.d_model),
+                    generator=gen, device=device).to(PR.compute_dtype(cfg))
+    return cfg, p, x
+
+
+def moe_plain(cfg, p, x, ep: int) -> tuple:
+    """The expert-parallel layer written plainly, in one process: for each
+    of ``ep`` ranks its experts' kept assignments (rank within the expert,
+    in order of arrival, below the capacity of ``x``'s tokens), each
+    expert's SwiGLU on its tokens in the compute dtype, the gated outputs
+    summed in f32 into the rank's share, rounded to the compute dtype
+    once.  -> (the shares (ep, *x.shape) f32, top_i)."""
+    dt = x.dtype
+    xf = x.reshape(-1, x.shape[-1])
+    T, k, E = xf.shape[0], cfg.moe_top_k, cfg.n_experts
+    probs = torch.softmax(xf.float() @ p["router"].float(), -1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :k], top_i[:, :k]
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    C = MOE._capacity(cfg, T, ep)
+    fe, fp = top_i.reshape(-1), top_p.reshape(-1)
+    ft = torch.arange(T, device=x.device).repeat_interleave(k)
+    shares = []
+    for r in range(ep):
+        share = torch.zeros((T, xf.shape[1]), dtype=torch.float32,
+                            device=x.device)
+        for e in range(r * E // ep, (r + 1) * E // ep):
+            sel = torch.nonzero(fe == e)[:, 0][:C]     # arrival order
+            xs = xf[ft[sel]]
+            h = torch.nn.functional.silu(xs @ p["we_g"][e].to(dt)) * (
+                xs @ p["we_u"][e].to(dt))
+            share.index_add_(0, ft[sel], ((h @ p["we_d"][e].to(dt))
+                                          * fp[sel][:, None].to(dt)).float())
+        shares.append(share.to(dt).float().reshape(x.shape))
+    return torch.stack(shares), top_i
+
+
+def phase_mesh_moe(device, *, batch: int, seq: int, iters: int,
+                   runs) -> None:
+    """Phase 19d: ``moe._moe_shardmap`` over 4 gloo rank processes on the
+    one card (NCCL puts no two ranks on one card), on (data, model)
+    meshes (1, 4) and (2, 2), at qwen3-moe-30b-a3b's width (d 2048, 128
+    experts, expert_d_ff 768, top-8), one layer, ``batch`` x ``seq``
+    tokens in bf16; then on (1, 4) with a second seed, and with the
+    layer in f32.  Each rank's routing equal to a plain version's in
+    this process, which runs each rank's share and sums them, and its y
+    within, in bf16, the rounding of a sum of the ranks' shares
+    (element-wise ``MOE_TOL`` x the number of shares x the sum of their
+    magnitudes), in f32 ``MOE_TOL_F32`` of the largest sum of the shares'
+    magnitudes; ms a call on each rank."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        for data, model, seed, dtype in runs:
+            t = time.perf_counter()
+            tag = f"{data}x{model}_s{seed}_{dtype or 'bf16'}"
+            cfg, p, x = moe_inputs(device, MESH_SMOKE, batch, seq,
+                                   seed=SEED + seed, dtype=dtype)
+            f32 = x.dtype == torch.float32
+            res = _spawn(MESH_MOE_RANK, lambda r: (
+                r, tmp, data, model, iters, device.type, int(MESH_SMOKE),
+                batch, seq, SEED + seed, dtype or "-", tag),
+                         data * model, f"19d {tag}", tmp,
+                         lambda r: f"moe_{tag}_rank{r}.npz")
+            errs, rel, mag = [], [], []
+            for r, got in enumerate(res):
+                d = r // model
+                xs = x[d * batch // data:(d + 1) * batch // data]
+                with torch.no_grad():
+                    shares, top_i = moe_plain(cfg, p, xs, model)
+                if not np.array_equal(got["top_i"], top_i.cpu().numpy()):
+                    raise AssertionError(f"19d {tag} rank {r}: routing "
+                                         f"differs from the plain version's")
+                want = shares.sum(0).cpu().numpy()
+                # bf16: the rounding of the sum of `model` shares (each
+                # rounded once, then model - 1 additions), element-wise
+                absum = shares.abs().sum(0).cpu().numpy()
+                bound = (np.full_like(absum, MOE_TOL_F32 * absum.max()) if f32
+                         else MOE_TOL * model * absum)
+                err = np.abs(got["y"] - want)
+                if not (err <= bound).all():
+                    i = int(np.argmax(err - bound))
+                    raise AssertionError(
+                        f"19d {tag} rank {r}: y differs by "
+                        f"{err.flat[i]:.4g} at an element whose bound is "
+                        f"{bound.flat[i]:.4g}")
+                errs.append(float((err / np.maximum(bound, 1e-30)).max()))
+                rel.append(float(err.max() / np.abs(want).max()))
+                mag.append(float((err / np.maximum(absum, 1e-30)).max()))
+            log(f"[19d moe shardmap] mesh (data, model) = ({data}, {model}) "
+                f"over {data * model} gloo ranks on the card, seed "
+                f"SEED+{seed}, {x.dtype}: "
+                f"{int(res[0]['experts'])} experts x ff "
+                f"{int(res[0]['ff'])} on each rank (E/ep, ff gathered over "
+                f"data in bf16), {batch // data} x {seq} tokens a rank; "
+                f"routing equal to the plain version's, y within "
+                f"{max(errs):.3g} of its bound ("
+                + (f"{MOE_TOL_F32:.4g} x the largest sum of the shares' "
+                   f"magnitudes" if f32 else f"element-wise {model} x "
+                   f"{MOE_TOL:.4g} x the sum of the shares' magnitudes")
+                + f"), max |diff| {max(mag):.3g} of the element's sum of "
+                f"the shares' magnitudes, {max(rel):.3g} of max |y| | ms a "
+                f"call (host clock, {iters} calls, each rank) "
+                f"{[f'{float(g['ms']):.2f}' for g in res]} | "
+                f"{time.perf_counter() - t:.1f} s with the ranks' start")
+            del p, x
+            _free(device)
+    log(f"[19d] {time.perf_counter() - t0:.1f} s")
+
+
+def dhnsw_inputs(device, variant: str, tp: int, dp: int = 1) -> dict:
+    """Phase 19e's full-size arguments of ``variant`` (the same in every
+    process): the SIFT1M-geometry store (``dryrun_dhnsw.N_BLOCKS`` blocks
+    of ``VBLK`` values in [-1, 1), f32 or its int8 codes, zero-padded to
+    the variant's block count on a mesh of ``tp`` model ranks), one
+    doorbell batch of ``M_FETCH`` spans of random
+    partitions, its pairs' queries, slots and validity."""
+    H = dryrun_dhnsw
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n_blocks = H.geometry(PR.AbstractMesh((tp,), ("model",)), variant)[0]
+    vec = torch.zeros((n_blocks, H.VBLK), dtype=torch.float32, device=device)
+    vec[:H.N_BLOCKS] = torch.rand((H.N_BLOCKS, H.VBLK), generator=gen,
+                                  device=device) * 2 - 1
+    parts = torch.randint(0, H.N_PARTS, (dp, H.M_FETCH), generator=gen,
+                          device=device)
+    starts = (parts // 2) * H.GROUP_BLOCKS + (parts % 2) * H.DATA_BLOCKS
+    ids = (starts[..., None] + torch.arange(H.FETCH_BLOCKS, device=device)
+           ).reshape(dp, -1).to(torch.int32)
+    q = torch.rand((dp, H.PAIRS, H.DIM), generator=gen, device=device) * 2 - 1
+    slot = torch.randint(0, H.M_FETCH, (dp, H.PAIRS), generator=gen,
+                         device=device, dtype=torch.int32)
+    valid = torch.rand((dp, H.PAIRS), generator=gen, device=device) < 0.9
+    if variant in ("int8_rest", "span_dma", "bf16_serve"):
+        vec = torch.clamp(torch.round(vec * 127), -127, 127).to(torch.int8)
+    if variant == "baseline":
+        ids, q, slot, valid = ids[0], q[0], slot[0], valid[0]
+    return {"vec": vec, "ids": ids, "q": q, "slot": slot, "valid": valid}
+
+
+def dhnsw_steps(mesh, device, iters: int) -> dict:
+    """Every d-HNSW variant's step on ``mesh`` over phase 19e's inputs:
+    each one's top-k ids and distances (this rank's), the collectives it
+    ran (counted by ``dryrun.CollectiveCounter``) and ms a step."""
+    from repro_torch.core.mesh import CollectiveCounter, axis_size
+    out = {}
+    for v in dryrun_dhnsw.VARIANTS:
+        step, _, in_sh, _ = dryrun_dhnsw.make_step(mesh, v)
+        a = dhnsw_inputs(device, v, axis_size(mesh, "model"))
+        args = [PR.shard_tensor(a[k], s) for k, s in zip(
+            ("vec", "ids", "q", "slot", "valid"), in_sh)]
+        del a
+        with CollectiveCounter() as cc:
+            d, i = step(*args)
+        _sync(device)
+        t = time.perf_counter()
+        for _ in range(iters):
+            step(*args)
+        _sync(device)
+        c = cc.summary()
+        out[f"{v}_ids"] = i.to_local().cpu().numpy()
+        out[f"{v}_d"] = d.to_local().cpu().numpy()
+        out[f"{v}_ms"] = (time.perf_counter() - t) / iters * 1e3
+        out[f"{v}_operand"] = c["operand_bytes_total"]
+        out[f"{v}_n"] = c["n_collectives"]
+        del args
+    return out
+
+
+def dhnsw_small() -> None:
+    """The d-HNSW store cut to 4 groups (8 partitions) for a CPU run of
+    19e (``MESH_SMOKE``); the fetch and serve shapes stay."""
+    dryrun_dhnsw.N_PARTS = 8
+    dryrun_dhnsw.N_BLOCKS = 4 * dryrun_dhnsw.GROUP_BLOCKS
+
+
+def _ids_tie_equal(ids, d, ref_ids, ref_d) -> bool:
+    """Top-k ids equal to the reference's, or differing only where the
+    two distances tie (within 1e-6 relative)."""
+    with np.errstate(invalid="ignore"):             # inf - inf
+        tie = (d == ref_d) | (np.abs(d - ref_d)
+                              <= 1e-6 * np.abs(ref_d) + 1e-12)
+    return bool(np.all((ids == ref_ids) | tie))
+
+
+def phase_mesh_dhnsw(device, mesh1, counts: dict, *, world: int,
+                     iters: int) -> None:
+    """Phase 19e: ``dryrun_dhnsw.make_step`` run for real: the SIFT1M
+    geometry's store (721 MB in f32, 180 MB in int8) over ``world`` gloo
+    rank processes on the card, a (1, ``world``) mesh, all six variants:
+    each rank's top-k ids equal to this process's run on ``mesh1`` (one
+    rank) up to ties, and the all-reduce operand bytes each step counted
+    equal to the port's dry run of the same mesh (``counts``, 19a)."""
+    t0 = time.perf_counter()
+    if MESH_SMOKE:
+        dhnsw_small()
+    one = dhnsw_steps(mesh1, device, iters)
+    _free(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dhnsw_") as tmp:
+        res = _spawn(MESH_DHNSW_RANK, lambda r: (
+            r, tmp, world, iters, device.type, int(MESH_SMOKE)), world,
+            "19e", tmp, lambda r: f"dhnsw_rank{r}.npz")
+    for v in dryrun_dhnsw.VARIANTS:
+        want = counts[v]["collectives"]
+        for r, got in enumerate(res):
+            if not _ids_tie_equal(got[f"{v}_ids"], got[f"{v}_d"],
+                                  one[f"{v}_ids"], one[f"{v}_d"]):
+                raise AssertionError(f"19e {v} rank {r}: top-k ids differ "
+                                     f"from the one-rank run's")
+            if (float(got[f"{v}_operand"]) != want["operand_bytes_total"]
+                    or int(got[f"{v}_n"]) != want["n_collectives"]):
+                raise AssertionError(
+                    f"19e {v} rank {r}: {float(got[f'{v}_operand'])} B in "
+                    f"{int(got[f'{v}_n'])} collective(s), the dry run "
+                    f"{want['operand_bytes_total']} B in "
+                    f"{want['n_collectives']}")
+        log(f"[19e d-HNSW step] {v} on a (1, {world}) mesh of gloo ranks on "
+            f"the card: top-k ids equal to the one-rank run's; "
+            f"{int(res[0][f'{v}_n'])} all-reduce of "
+            f"{float(res[0][f'{v}_operand']):.0f} B a step (= the dry "
+            f"run's) | ms a step (host clock, {iters} steps) each rank "
+            f"{[f'{float(g[f'{v}_ms']):.3f}' for g in res]}, one rank "
+            f"{one[f'{v}_ms']:.3f}")
+    log(f"[19e] {time.perf_counter() - t0:.1f} s with the ranks' start")
+
+
+def phase_mesh(device, smi: str, *, step_17a: float) -> int:
+    """Phase 19, the mesh: (a) the dry runs (host only), then on a host
+    mesh of one NCCL rank (b) the meshed train step and (c) the meshed
+    serve steps, (d) ``_moe_shardmap`` and (e) the d-HNSW step over gloo
+    ranks on the card.  Returns 19c's ``decode_attention`` launches."""
+    from repro_torch.launch.mesh import make_host_mesh
+    t19 = time.perf_counter()
+    counts = phase_mesh_dryrun()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rdv", world_size=1, rank=0)
+        try:
+            mesh = make_host_mesh(device_type=device.type)
+            phase_mesh_train(device, mesh, smi, step_17a=step_17a,
+                             arch=TRAIN_ARCH,
+                             **{**TRAIN, "steps": MESH_TRAIN_STEPS})
+            da = phase_mesh_serve(device, mesh, arch=RAG_ARCH, **MESH_SERVE)
+            phase_mesh_moe(device, **MESH_MOE)
+            phase_mesh_dhnsw(device, mesh, counts, **MESH_DHNSW)
+        finally:
+            dist.destroy_process_group()
+    log(f"[19] {time.perf_counter() - t19:.1f} s")
+    return da
 
 
 # ------------------------------------------ the paper's evaluation (18)
@@ -4483,7 +5213,9 @@ def main(argv=None) -> int:
     log(f"[15c] {time.perf_counter() - t15:.1f} s")
     phase_sharded_store(store, gathers[0][0].cpu().numpy(), device,
                         **SHARD_STORE)
-    phase_training(device, dev_info["smi"])
+    train = phase_training(device, dev_info["smi"])
+    launches["decode_attention"] += phase_mesh(
+        device, dev_info["smi"], step_17a=train["step_s"])
     paper_launches, paper_recorded, paper_bufs = phase_paper(
         ds, meta, store, device, graph_batch=exact_batches["graph"])
     ins_launches, ins_recorded, ins_bufs = phase_insert(

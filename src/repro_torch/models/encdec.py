@@ -187,6 +187,16 @@ def init_cache_abstract(cfg, batch: int, cache_len: int):
                  for s in (kv, kv, xkv, xkv))
 
 
+
+def cache_logical_spec(cfg, tp_size: int):
+    if cfg.n_kv_heads and tp_size and cfg.n_kv_heads % tp_size == 0:
+        kv = (None, "batch", None, "tp", None)
+        xkv = (None, "batch", None, "tp", None)
+    else:
+        kv = (None, "batch", "seq", None, None)
+        xkv = (None, "batch", None, None, None)
+    return (kv, kv, xkv, xkv)
+
 def prefill(cfg, params, tokens, cache_len: int, *, frames):
     """-> (last-token logits (B, 1, V) f32, (k, v, cross k, cross v)),
     zeros in k and v past the prompt."""

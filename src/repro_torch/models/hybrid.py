@@ -76,6 +76,15 @@ def init_cache_abstract(cfg, batch: int, cache_len: int):
                      torch.empty(kv, dtype=dt, device="meta"))
 
 
+
+def cache_logical_spec(cfg, tp_size: int):
+    mspec = mamba2.cache_logical_spec(cfg, tp_size)
+    if cfg.n_kv_heads and tp_size and cfg.n_kv_heads % tp_size == 0:
+        kv = (None, "batch", None, "tp", None)
+    else:
+        kv = (None, "batch", "seq", None, None)
+    return mspec + (kv, kv)
+
 def prefill(cfg, params, tokens, cache_len: int):
     """-> (last-token logits (B, 1, V) f32, (conv_x, conv_bc, ssm, k, v))
     with zeros in k and v past the prompt."""

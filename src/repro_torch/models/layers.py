@@ -18,13 +18,24 @@ The loss: ``cross_entropy`` over f32 logits and ``chunked_cross_entropy``,
 which never holds the (B, S, V) f32 logits: each S-chunk's logits are
 recomputed in the backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` with ``nothing_saveable``).  ``remat`` is the same
-per-layer recompute for the models' training forward.
+per-layer recompute for the models' training forward.  Under a mesh
+with ``REPRO_SHARDED_CE`` (or a vocab-sharded unembed,
+``REPRO_LOSS_UNEMBED_TP``) each chunk runs vocab-parallel over
+``model``; ``REPRO_FORCE_FULL_ATTENTION`` sends ``attend`` down the full
+path (the reference's costing hook).
 """
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.mesh import axis_size, coordinate, group
+from repro_torch.models.params import (gather_model, model_slice,
+                                       reduce_model, to_model)
 
 NEG = -1e30
 
@@ -117,6 +128,11 @@ def attend(q, k, v, *, causal=True, window=0, softcap=0.0):
     """The reference's dispatch: the blocked flash forward for long
     sequences whose lengths it can block, else ``attend_full``."""
     from repro_torch.models import flash
+    if os.environ.get("REPRO_FORCE_FULL_ATTENTION"):
+        # costing hook (launch/dryrun.py): the full path does
+        # the same products with no block loops to trace
+        return attend_full(q, k, v, causal=causal, window=window,
+                           softcap=softcap)
     if q.shape[1] >= BLOCKWISE_THRESHOLD and flash.flash_ok(q.shape[1],
                                                             k.shape[1]):
         return flash.flash_attention(q, k, v, window=window, causal=causal,
@@ -231,8 +247,40 @@ def _ce_chunk(xc, unembed, lc, softcap, ignore_id):
     return (nll * valid).sum(), valid.sum()
 
 
+def _vocab_shard(mesh, V: int) -> bool:
+    """``REPRO_SHARDED_CE``: run each CE chunk with its logits
+    vocab(TP)-sharded, the lse and true-logit reductions crossing the
+    ``model`` ranks as (B, chunk) values (the reference pins the chunk's
+    logits to that sharding)."""
+    if mesh is None or not os.environ.get("REPRO_SHARDED_CE"):
+        return False
+    tp = axis_size(mesh, "model")
+    return tp > 1 and V % tp == 0
+
+
+def _ce_chunk_tp(xc, u_loc, lc, softcap, ignore_id, mesh):
+    """``_ce_chunk`` over this rank's vocab slice ``u_loc`` (d, V/tp) of
+    the unembed: the max, the sum of exponentials and the true logit are
+    combined over ``model``."""
+    Vl = u_loc.shape[1]
+    lo = coordinate(mesh, "model") * Vl
+    logits = (to_model(xc, mesh) @ u_loc.to(xc.dtype)).float()
+    logits = _softcap(logits, softcap)
+    m = logits.detach().amax(-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group(mesh, "model"))
+    se = reduce_model(torch.exp(logits - m[..., None]).sum(-1), mesh)
+    inside = (lc >= lo) & (lc < lo + Vl)
+    idx = (lc - lo).clamp(0, Vl - 1).long()[..., None]
+    true = reduce_model(torch.where(inside, logits.gather(-1, idx)[..., 0],
+                                    0.0), mesh)
+    valid = (lc != ignore_id).float()
+    nll = m + torch.log(se) - true
+    return (nll * valid).sum(), valid.sum()
+
+
 def chunked_cross_entropy(x, unembed, labels, *, softcap=0.0,
-                          ignore_id: int = -1, chunk: int = 512):
+                          ignore_id: int = -1, chunk: int = 512, mesh=None,
+                          unembed_sharded: bool = False):
     """CE without the full (B, S, V) f32 logits: a loop over S-chunks,
     each chunk's logits recomputed in the backward.  x: (B, S, d) final
     normed hidden; unembed: (d, V), cast to x's dtype inside each chunk
@@ -240,7 +288,16 @@ def chunked_cross_entropy(x, unembed, labels, *, softcap=0.0,
     accumulates them).  Sequences of at most one chunk, or not a
     multiple of it, take the unchunked path, as the reference's do."""
     B, S, d = x.shape
-    if S % chunk != 0 or S <= chunk:
+    chunked = not (S % chunk != 0 or S <= chunk)
+    if unembed_sharded and not chunked:
+        unembed = gather_model(unembed, 1, mesh)
+    tp_ce = chunked and (unembed_sharded or _vocab_shard(
+        mesh, unembed.shape[1]))
+    if tp_ce and not unembed_sharded:
+        n = unembed.shape[1] // axis_size(mesh, "model")
+        unembed = model_slice(unembed, 1, coordinate(mesh, "model") * n, n,
+                              mesh)
+    if not chunked:
         logits = x @ unembed.to(x.dtype)
         return cross_entropy(softcap_logits(logits.float(), softcap),
                              labels, ignore_id=ignore_id)
@@ -248,8 +305,12 @@ def chunked_cross_entropy(x, unembed, labels, *, softcap=0.0,
     n_valid = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(S // chunk):
         cs = slice(c * chunk, (c + 1) * chunk)
-        nll, nv = remat(True, _ce_chunk, x[:, cs], unembed, labels[:, cs],
-                        softcap, ignore_id)
+        if tp_ce:
+            nll, nv = remat(True, _ce_chunk_tp, x[:, cs], unembed,
+                            labels[:, cs], softcap, ignore_id, mesh)
+        else:
+            nll, nv = remat(True, _ce_chunk, x[:, cs], unembed,
+                            labels[:, cs], softcap, ignore_id)
         nll_sum = nll_sum + nll
         n_valid = n_valid + nv
     return nll_sum / torch.clamp(n_valid, min=1.0)

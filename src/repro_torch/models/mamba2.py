@@ -253,6 +253,14 @@ def init_cache_abstract(cfg, batch: int, cache_len: int):
             meta((Lr, batch, nh, hp, N), F32))
 
 
+
+def cache_logical_spec(cfg, tp_size: int):
+    return (
+        (None, "batch", "tp", None),
+        (None, "batch", None, None),
+        (None, "batch", "tp", None, None),
+    )
+
 def prefill(cfg, params, tokens, cache_len: int):
     """-> (last-token logits (B, 1, V) f32, cache (conv_x, conv_bc, ssm),
     each stacked over layers)."""

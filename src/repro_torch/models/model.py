@@ -3,10 +3,14 @@
 Port of ``repro/models/model.py``'s dispatch (``param_defs``,
 ``forward``, ``prefill``, ``decode_step``, ``init_cache_abstract``) for
 all six families, ``input_specs`` (meta-device tensors in place of the
-reference's ``ShapeDtypeStruct``s) and ``model_flops``.  As in the
-reference, an ``encdec`` batch must carry ``"frames"`` (a ``KeyError``
-otherwise) and a ``vlm`` batch may carry ``"patches"``.  The reference's
-input sharding specs serve its mesh, which has no counterpart here.
+reference's ``ShapeDtypeStruct``s), the logical specs of the inputs
+and caches (``input_logical_specs``, ``cache_logical_spec``),
+``serve_param_defs`` and ``model_flops``.  As in the reference, an
+``encdec`` batch must carry ``"frames"`` (a ``KeyError`` otherwise) and a
+``vlm`` batch may carry ``"patches"``.  ``mesh`` reaches the transformer
+families (dense, moe, vlm: head-sharded attention and expert-parallel
+MoE over ``model``); the others run their local batch shard with every
+weight gathered.
 
 ``stored_dtype`` says how a serving copy keeps each parameter: the
 matrices that every product casts to the compute dtype
@@ -22,7 +26,7 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import encdec, hybrid, mamba2
 from repro_torch.models import transformer as tfm
-from repro_torch.models.params import compute_dtype
+from repro_torch.models.params import ParamDef, compute_dtype
 
 _FAMS = {
     "dense": tfm, "moe": tfm, "vlm": tfm,
@@ -53,36 +57,57 @@ def param_defs(cfg: ModelConfig):
     return family_module(cfg).param_defs(cfg)
 
 
-def _inputs(cfg, batch: dict) -> dict:
+def serve_param_defs(cfg: ModelConfig):
+    """Serving stores bf16 weights, TP-sharded only (no per-token FSDP
+    gathers at decode)."""
+    def conv(d):
+        if isinstance(d, dict):
+            return {k: conv(v) for k, v in d.items()}
+        logical = tuple(None if ax == "fsdp" else ax for ax in d.logical)
+        return ParamDef(d.shape, logical, d.init, d.scale, torch.bfloat16)
+    return conv(param_defs(cfg))
+
+
+def _inputs(cfg, batch: dict, mesh) -> dict:
+    kw = {"mesh": mesh} if mesh is not None and family_module(cfg) is tfm \
+        else {}
     if cfg.family == "encdec":
-        return {"frames": batch["frames"]}
+        kw["frames"] = batch["frames"]
     if cfg.family == "vlm":
-        return {"patches": batch.get("patches")}
-    return {}
+        kw["patches"] = batch.get("patches")
+    return kw
 
 
-def forward(cfg, params, batch: dict, *, remat=True, return_hidden=False):
+def forward(cfg, params, batch: dict, *, mesh=None, remat=True,
+            return_hidden=False):
     """-> (logits (B, S, V) f32, or the final normed hidden with
     ``return_hidden``; moe aux loss)."""
     return family_module(cfg).forward(cfg, params, batch["tokens"],
                                       remat=remat,
                                       return_hidden=return_hidden,
-                                      **_inputs(cfg, batch))
+                                      **_inputs(cfg, batch, mesh))
 
 
-def prefill(cfg, params, batch: dict, cache_len: int):
+def prefill(cfg, params, batch: dict, cache_len: int, *, mesh=None):
     """-> (last-token logits (B, 1, V) f32, the family's cache)."""
     return family_module(cfg).prefill(cfg, params, batch["tokens"],
-                                      cache_len, **_inputs(cfg, batch))
+                                      cache_len, **_inputs(cfg, batch, mesh))
 
 
-def decode_step(cfg, params, cache, tokens, pos):
+def decode_step(cfg, params, cache, tokens, pos, *, mesh=None):
     """-> (logits (B, V) f32, the cache, updated in place)."""
-    return family_module(cfg).decode_step(cfg, params, cache, tokens, pos)
+    kw = {"mesh": mesh} if mesh is not None and family_module(cfg) is tfm \
+        else {}
+    return family_module(cfg).decode_step(cfg, params, cache, tokens, pos,
+                                          **kw)
 
 
 def init_cache_abstract(cfg, batch: int, cache_len: int):
     return family_module(cfg).init_cache_abstract(cfg, batch, cache_len)
+
+
+def cache_logical_spec(cfg, tp_size: int):
+    return family_module(cfg).cache_logical_spec(cfg, tp_size)
 
 
 # --------------------------------------------------------------- inputs
@@ -109,6 +134,20 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
         out["tokens"] = meta((B,), i32)
         out["pos"] = meta((B,), i32)
     return out
+
+
+def input_logical_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Logical partition specs matching input_specs."""
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": ("batch", None)}
+        if shape.kind == "train":
+            out["labels"] = ("batch", None)
+        if cfg.family == "encdec":
+            out["frames"] = ("batch", None, None)
+        if cfg.family == "vlm":
+            out["patches"] = ("batch", None, None)
+        return out
+    return {"tokens": ("batch",), "pos": ("batch",)}
 
 
 # --------------------------------------------------------------- flops

@@ -1,12 +1,20 @@
 """Mixture-of-Experts FFN, on torch.
 
-Port of ``repro/models/moe.py``'s dense path (``_moe_dense``): top-k
-routing with softmax-renormalised gates, capacity-factor token dropping
-(order of arrival within each expert), a one-buffer dispatch, the three
-expert products and the gated combine; it returns ``(y, aux_loss)`` with
-the Switch/GShard load-balance loss.  The reference's ``_moe_shardmap``
-(expert parallel over a mesh's ``model`` axis) has no counterpart: the
-port runs on one card, where the reference takes the dense path too.
+Port of ``repro/models/moe.py``'s two paths: top-k routing with
+softmax-renormalised gates, capacity-factor token dropping (order of
+arrival within each expert), a one-buffer dispatch, the three expert
+products and the gated combine; each returns ``(y, aux_loss)`` with the
+Switch/GShard load-balance loss.
+
+* ``_moe_shardmap`` — a mesh with a ``model`` axis of more than one rank
+  that divides the experts: expert parallel.  Tokens are replicated over
+  ``model``; each rank holds ``E/ep`` experts, selects its own tokens
+  (stable sort, rank within the expert below the capacity), all-gathers
+  its experts' ``ff`` shards over ``data`` in the compute dtype when they
+  are FSDP-sharded, and one ``all_reduce(SUM)`` over ``model`` combines
+  the outputs (the reference's ``psum``).  Only ``all_reduce``,
+  ``all_gather`` and their reduce-scatter transpose, so it runs on gloo.
+* ``_moe_dense`` — no mesh, or one the experts don't divide.
 
 Three choices keep the numbers the reference's:
 
@@ -26,7 +34,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.params import ParamDef
+from repro_torch.core.mesh import axis_names, axis_size, coordinate
+from repro_torch.models.params import (ParamDef, gather_data, reduce_model,
+                                       to_model)
 
 
 def moe_param_defs(cfg, Lx, st):
@@ -111,6 +121,78 @@ def _moe_dense(cfg, p, x):
     return y.reshape(B, S, d), aux
 
 
-def moe_ffn(cfg, p, x):
+# --------------------------------------------------------- shard_map path
+
+
+def _shard_f(cfg, mesh) -> bool:
+    """Whether the experts' ff dim is FSDP-sharded over ``data``."""
+    return ("data" in axis_names(mesh)
+            and cfg.expert_d_ff % axis_size(mesh, "data") == 0)
+
+
+def expert_keep(cfg, mesh) -> tuple:
+    """The mesh axes whose shards of the expert weights ``_moe_shardmap``
+    takes as they are (the rest are gathered before the step): ``model``
+    (expert parallel) and ``data`` when it gathers the ff shards itself."""
+    if not use_shardmap(cfg, mesh):
+        return ()
+    return ("model", "data") if _shard_f(cfg, mesh) else ("model",)
+
+
+def _moe_shardmap(cfg, p, x, mesh):
+    """x: (B_loc, S, d), this rank's batch shard, the same on every
+    ``model`` rank; p's experts: this rank's (E/ep, d, f[/fsdp])."""
+    dt = x.dtype
+    ep = axis_size(mesh, "model")
+    E = cfg.n_experts
+    assert E % ep == 0, f"experts {E} not divisible by EP size {ep}"
+    E_loc = E // ep
+    B_loc, S, d = x.shape
+    xf = x.reshape(-1, d)
+    T = xf.shape[0]
+    top_p, top_i, aux = _route(cfg, xf, p["router"])
+    k = cfg.moe_top_k
+    C = _capacity(cfg, T, ep)
+    my = coordinate(mesh, "model")
+    fe = top_i.reshape(-1)
+    ft = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
+    order = torch.argsort(fe, stable=True)
+    se, stk = fe[order], ft[order]
+    sp = to_model(top_p, mesh).reshape(-1)[order]
+    first = torch.searchsorted(se, se, side="left")
+    rank = torch.arange(T * k, device=x.device) - first
+    keep = rank < C
+    rel = se - my * E_loc
+    mine = (rel >= 0) & (rel < E_loc) & keep
+    slot = torch.where(mine, rel * C + rank, E_loc * C)
+    buf = torch.zeros((E_loc * C + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_copy(0, slot, to_model(xf, mesh)[stk]
+                         * mine[:, None].to(dt))
+    wg, wu, wd = (p[n].to(dt) for n in ("we_g", "we_u", "we_d"))
+    if _shard_f(cfg, mesh):     # FSDP: gather the ff shards (compute dtype)
+        wg, wu = gather_data(wg, 2, mesh), gather_data(wu, 2, mesh)
+        wd = gather_data(wd, 1, mesh)
+    out = _expert_mm(buf[:-1].view(E_loc, C, d), wg, wu, wd, dt)
+    flat = torch.cat([out.reshape(E_loc * C, d),
+                      torch.zeros((1, d), dtype=dt, device=x.device)])
+    contrib = flat[slot] * (sp * mine)[:, None].to(dt)
+    # back to arrival order, each token's k contributions summed in one
+    # fixed order (as the dense path does)
+    y = torch.empty_like(contrib).index_copy(0, order, contrib)
+    y = reduce_model(y.view(T, k, d).sum(1), mesh)
+    return y.reshape(B_loc, S, d), aux
+
+
+def use_shardmap(cfg, mesh) -> bool:
+    """The reference's condition (moe.py:168-173)."""
+    return (mesh is not None
+            and "model" in axis_names(mesh)
+            and axis_size(mesh, "model") > 1
+            and cfg.n_experts % axis_size(mesh, "model") == 0)
+
+
+def moe_ffn(cfg, p, x, mesh=None):
     """x: (B, S, d) -> (y, aux_loss)."""
+    if use_shardmap(cfg, mesh):
+        return _moe_shardmap(cfg, p, x, mesh)
     return _moe_dense(cfg, p, x)

@@ -33,8 +33,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as DA
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.params import (ParamDef, compute_dtype, layer,
-                                       seq_shard, shard_heads, zeros_of)
+from repro_torch.core.mesh import axis_size, coordinate
+from repro_torch.models.params import (ParamDef, compute_dtype, gather_model,
+                                       layer, model_slice, reduce_model,
+                                       seq_shard, shard_heads, to_model,
+                                       zeros_of)
 
 # ------------------------------------------------------------------ defs
 
@@ -98,7 +101,7 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
-                pos=None):
+                pos=None, mesh=None):
     """x: (B, S, d) for train/prefill; (B, 1, d) for decode."""
     dt = x.dtype
     hd = cfg.the_head_dim()
@@ -132,34 +135,92 @@ def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
                                   softcap=cfg.attn_softcap)[:, None]
         new_cache = (kc, vc)
     else:
-        q, k, v = (shard_heads(t) for t in (q, k, v))
-        out = L.attend(q, k, v, causal=True, window=window,
-                       softcap=cfg.attn_softcap)
+        out = _attend_tp(cfg, q, k, v, window, mesh)
         new_cache = (k, v) if mode == "prefill" else None
     y = out.reshape(B, S, H * hd) @ p["wo"].to(dt)
     return x + y, new_cache
 
 
-def _mlp_block(cfg: ModelConfig, p, x):
+def _attend_tp(cfg: ModelConfig, q, k, v, window: int, mesh):
+    """Attention of (B, S, H, hd) q over (B, S, K, hd) k, v.  Under a mesh
+    each ``model`` rank attends with its share of the heads and the
+    outputs are gathered (the reference's ``shard_heads`` constraints);
+    when H doesn't divide the model axis but exceeds it (llama4: 40
+    heads on tp=16), the GQA group dim is padded so K*G' divides tp, the
+    padded heads are shared out, and the padding is cut off after."""
+    tp = axis_size(mesh, "model")
+    H, K = q.shape[2], k.shape[2]
+
+    def attend(q, k, v):
+        return L.attend(q, k, v, causal=True, window=window,
+                        softcap=cfg.attn_softcap)
+    if tp <= 1 or (H % tp and H <= tp):
+        return attend(q, k, v)
+    B, S, _, hd = q.shape
+    G = H // K
+    Gp = G
+    while (K * Gp) % tp:
+        Gp += 1
+    if Gp != G:
+        qg = q.reshape(B, S, K, G, hd)
+        q = torch.nn.functional.pad(qg, (0, 0, 0, Gp - G)).reshape(
+            B, S, K * Gp, hd)
+    hl, r = K * Gp // tp, coordinate(mesh, "model")   # this rank's heads
+    if hl % Gp and Gp % hl:
+        # a rank's heads would span a ragged set of kv heads: unsharded
+        out = attend(q, k, v)
+    else:
+        kl, kv0 = max(hl // Gp, 1), r * hl // Gp
+        out = gather_model(attend(shard_heads(q, mesh),
+                                  model_slice(k, 2, kv0, kl, mesh),
+                                  model_slice(v, 2, kv0, kl, mesh)), 2, mesh)
+    return out if Gp == G else _unpad(out, K, Gp, G)
+
+
+def _unpad(out, K: int, Gp: int, G: int):
+    B, S, _, hd = out.shape
+    return out.reshape(B, S, K, Gp, hd)[:, :, :, :G].reshape(B, S, K * G, hd)
+
+
+MLP_WEIGHTS = ("wg", "wu", "wd", "se_wg", "se_wu", "se_wd")
+
+
+def mlp_tp(cfg: ModelConfig, mesh) -> bool:
+    """Whether the SwiGLU runs Megatron-parallel over ``model``: its
+    matrices keep their ``model`` shards of ``d_ff`` (column-parallel
+    gate and up, row-parallel down, one all-reduce of the output)."""
+    tp = axis_size(mesh, "model")
+    return (cfg.family in ("dense", "moe", "vlm") and tp > 1
+            and cfg.d_ff > 0 and cfg.d_ff % tp == 0)
+
+
+def _swiglu(cfg, h, wg, wu, wd, mesh):
+    if mlp_tp(cfg, mesh):
+        return reduce_model(L.swiglu(to_model(h, mesh), wg, wu, wd), mesh)
+    return L.swiglu(h, wg, wu, wd)
+
+
+def _mlp_block(cfg: ModelConfig, p, x, mesh=None):
     dt = x.dtype
     h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     aux = 0.0                # no tensor (and no launch) unless moe
     if cfg.family == "moe":
-        y, aux = moe_lib.moe_ffn(cfg, p, h)
+        y, aux = moe_lib.moe_ffn(cfg, p, h, mesh=mesh)
         if cfg.shared_expert:
-            y = y + L.swiglu(h, p["se_wg"].to(dt), p["se_wu"].to(dt),
-                             p["se_wd"].to(dt))
+            y = y + _swiglu(cfg, h, p["se_wg"].to(dt), p["se_wu"].to(dt),
+                            p["se_wd"].to(dt), mesh)
     else:
-        y = L.swiglu(h, p["wg"].to(dt), p["wu"].to(dt), p["wd"].to(dt))
+        y = _swiglu(cfg, h, p["wg"].to(dt), p["wu"].to(dt), p["wd"].to(dt),
+                    mesh)
     return x + y, aux
 
 
 def block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
-          pos=None):
+          pos=None, mesh=None):
     """-> (x, new cache, the layer's moe aux loss (0 unless moe))."""
     x, new_cache = _attn_block(cfg, p, x, window, mode=mode, cache=cache,
-                               pos=pos)
-    x, aux = _mlp_block(cfg, p, x)
+                               pos=pos, mesh=mesh)
+    x, aux = _mlp_block(cfg, p, x, mesh=mesh)
     return x, new_cache, aux
 
 
@@ -179,23 +240,24 @@ def _logits(cfg, params, x):
     return L.softcap_logits(L.unembed(params, x), cfg.logit_softcap)
 
 
-def _train_block(cfg, p, x, window: int):
-    x, _, aux = block(cfg, p, x, window, mode="train")
+def _train_block(cfg, p, x, window: int, mesh=None):
+    x, _, aux = block(cfg, p, x, window, mode="train", mesh=mesh)
     return x, aux
 
 
-def forward(cfg: ModelConfig, params, tokens, *, patches=None, remat=True,
-            return_hidden=False):
+def forward(cfg: ModelConfig, params, tokens, *, patches=None, mesh=None,
+            remat=True, return_hidden=False):
     """Full-sequence forward -> (logits (B, S_total, V) f32, moe aux loss:
     the mean over layers, 0 unless moe).  S_total counts the prepended
     patches (vlm).  With ``return_hidden``, the final normed hidden
     (B, S_total, d) in place of the logits (the training loss takes the
     chunked CE).  ``remat`` recomputes each layer in the backward."""
-    x = seq_shard(embed_tokens(cfg, params, tokens, patches))
+    x = seq_shard(embed_tokens(cfg, params, tokens, patches), mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, w in enumerate(layer_windows(cfg)):
         x, a = L.remat(remat, _train_block, cfg, layer(params["blocks"], l),
-                       x, int(w))
+                       x, int(w), mesh)
+        x = seq_shard(x, mesh)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = aux / max(cfg.n_layers, 1)
@@ -205,7 +267,7 @@ def forward(cfg: ModelConfig, params, tokens, *, patches=None, remat=True,
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache_len: int, *,
-            patches=None):
+            patches=None, mesh=None):
     """Prefill: returns (last-token logits (B, 1, V) f32, KV cache (k, v),
     each (L, B, cache_len, K, hd) with zeros past the prompt, the
     prepended patches included)."""
@@ -215,14 +277,14 @@ def prefill(cfg: ModelConfig, params, tokens, cache_len: int, *,
                             x.device)
     for l, w in enumerate(layer_windows(cfg)):
         x, (k, v), _ = block(cfg, layer(params["blocks"], l), x, int(w),
-                             mode="prefill")
+                             mode="prefill", mesh=mesh)
         k_all[l, :, :S] = k
         v_all[l, :, :S] = v
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x), (k_all, v_all)
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, mesh=None):
     """One decode step.  tokens: (B,), pos: (B,) write positions.
     cache: (k, v) each (L, B, Smax, K, hd), updated in place.  Returns
     (logits (B, V) f32, cache)."""
@@ -230,7 +292,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     k_all, v_all = cache
     for l, w in enumerate(layer_windows(cfg)):
         x, _, _ = block(cfg, layer(params["blocks"], l), x, int(w),
-                        mode="decode", cache=(k_all[l], v_all[l]), pos=pos)
+                        mode="decode", cache=(k_all[l], v_all[l]), pos=pos,
+                        mesh=mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x[:, 0]), cache
 
@@ -243,3 +306,12 @@ def init_cache_abstract(cfg: ModelConfig, batch: int, cache_len: int):
     dt = compute_dtype(cfg)
     return (torch.empty(shape, dtype=dt, device="meta"),
             torch.empty(shape, dtype=dt, device="meta"))
+
+
+def cache_logical_spec(cfg: ModelConfig, tp_size: int):
+    """(L, B, S, K, hd): shard K over tp when divisible, else shard S."""
+    if cfg.n_kv_heads and tp_size and cfg.n_kv_heads % tp_size == 0:
+        spec = (None, "batch", None, "tp", None)
+    else:
+        spec = (None, "batch", "seq", None, None)
+    return (spec, spec)  # (k, v)

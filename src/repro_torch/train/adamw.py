@@ -34,6 +34,16 @@ def init(params) -> AdamWState:
                       T.tree_map(z, params), T.tree_map(z, params))
 
 
+def abstract_state(abstract_param_tree) -> AdamWState:
+    """The state of ``abstract_param_tree`` (meta tensors) as meta
+    tensors: an int32 step and f32 m, v shaped like the params."""
+    def z(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                      T.tree_map(z, abstract_param_tree),
+                      T.tree_map(z, abstract_param_tree))
+
+
 def cosine_lr(step, *, peak=3e-4, warmup=100, total=10_000, floor=0.1):
     """Linear warm-up to ``peak`` over ``warmup`` steps, then a cosine to
     ``floor * peak`` at ``total``; ``step`` an int32 tensor."""
@@ -63,14 +73,17 @@ def clip_by_global_norm(grads, max_norm=1.0):
 
 @torch.no_grad()
 def update(grads, state: AdamWState, params, *, lr_fn=cosine_lr,
-           b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip=1.0):
+           b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip=1.0,
+           norm_fn=global_norm):
     """One AdamW step, in place: ``params``, ``state.m``, ``state.v`` and
     ``state.step`` are written.  Returns (params, state, {"lr",
     "grad_norm"}).  As in the reference, the schedule reads the already
-    incremented step."""
+    incremented step.  ``norm_fn`` takes the f32 gradient leaves to their
+    global norm (a meshed step passes shards and a norm that sums their
+    squares over the ranks)."""
     g_leaves = [g.float() for g in T.leaves(grads)]
     if clip:
-        gnorm = global_norm(g_leaves)
+        gnorm = norm_fn(g_leaves)
         scale = _clip_scale(gnorm, clip)
     else:
         gnorm = torch.zeros((), dtype=torch.float32,

@@ -16,9 +16,10 @@ rewrite LATEST through a tmp file and a rename: a crash leaves either
 the old or the new checkpoint whole.  ``restore`` verifies the checksums
 (``IOError`` on a mismatch) and puts each leaf on the device of the
 matching leaf of ``tree_like`` (the CPU where that leaf is no tensor):
-the one-card counterpart of the reference's target shardings.  The
-reference's ``reshard_tree`` and ``rescale_train_state`` move state
-between meshes and belong with the mesh machinery.
+the one-card counterpart of the reference's target shardings.
+``reshard_tree`` and ``rescale_train_state`` move DTensor state between
+meshes (elastic rescale): each leaf is gathered on its mesh and each
+rank keeps its shard of the new placements, the values unchanged.
 """
 from __future__ import annotations
 
@@ -118,3 +119,32 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
         dev = like.device if isinstance(like, torch.Tensor) else "cpu"
         out.append(torch.from_numpy(arr).to(dev))
     return T.unflatten(tree_like, out), manifest["step"]
+
+
+# ------------------------------------------------------- elastic rescale
+# (down-scale and up-scale are the same operation: build the new mesh,
+# resolve the same *logical* specs against it, move every leaf)
+
+def reshard_tree(tree: Any, new_shardings: Any) -> Any:
+    """Every leaf moved to its new sharding (a ``NamedSharding`` on any
+    mesh): gathered where it is, then this rank's shard of the new
+    placements.  A leaf whose sharding is None is left as it is."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.params import shard_tensor
+
+    def move(x, s):
+        if s is None:
+            return x
+        full = x.full_tensor() if isinstance(x, DTensor) else x
+        return shard_tensor(full, s)
+    return T.tree_map(move, tree, new_shardings)
+
+
+def rescale_train_state(params, opt_state, defs, new_mesh):
+    """Re-resolve the params' logical specs on ``new_mesh`` and move."""
+    from repro_torch.models.params import P, NamedSharding, param_shardings
+    from repro_torch.train.adamw import AdamWState
+    p_sh = param_shardings(defs, new_mesh)
+    opt_sh = AdamWState(NamedSharding(new_mesh, P()), p_sh, p_sh)
+    return reshard_tree(params, p_sh), reshard_tree(opt_state, opt_sh)
