@@ -171,7 +171,28 @@ Phases, each printing its own lines:
     MB f32 / 180 MB int8 store) over 4 gloo ranks on a (1, 4) mesh, all
     six variants: top-k ids equal to a one-rank run's up to ties, the
     counted all-reduce operand bytes equal to the dry run's of the same
-    mesh, ms a step.
+    mesh, ms a step; (f) the meshed prefill and decode steps of every
+    family over gloo rank processes on the card, each split over
+    ``model`` as its placements are: (a) qwen3-8b at full width, 4
+    layers, on (1, 4) (its kv cache over its heads), (b) qwen3-moe at
+    full width, 4 layers, on (1, 8) (4 kv heads on 8 ranks: the cache
+    over its sequence, ``decode_attention``'s partial mode on every
+    shard, merged by log-sum-exp), (c) mamba2-370m at full depth,
+    zamba2-2.7b at 6 layers (one use of its shared block) and
+    whisper-tiny on (1, 4); 8 prompts of 1024 tokens and 8 decode steps,
+    the weights drawn from one seed on the card, each meshed step fed
+    the unmeshed path's greedy token.  Every path runs in f32 compute
+    on the bf16 weights: each step's logits within ``F32_FAMILY_TOL`` of
+    that step's max |logit| and each argmax equal wherever the unmeshed
+    top-2 gap exceeds that; (b) runs in bf16 compute too, its first
+    logits within ``family_bound``; the partial mode's launches counted
+    in its wrapper, held against its plain version at the shard's shape
+    (and with empty shards), timed beside SDPA.  19a also prints each
+    cell's working set, FLOPs and collective bytes beside those of the
+    tree whose meshed steps gathered their weights and cache over
+    ``model`` (``MESH_GATHERED``) and holds each decode cell's working
+    set to twice its arguments and each train cell's FLOPs to twice its
+    model FLOPs.
 
 Phases 15-17 run right after phase 9 (the LM phases together, on a
 host not yet loaded by the pool phases' servers and threads; 17 once
@@ -403,6 +424,58 @@ MOE_TOL = 2.0 ** -8
 # ranks' products and sums run in other orders than the plain version's
 MOE_TOL_F32 = 1e-5
 MESH_DHNSW = dict(world=4, iters=10)
+# 19f: (tag, arch, depth (None: the config's), model ranks, compute dtype
+# (None: the config's bf16)) on (1, ranks) meshes of gloo rank processes
+# on the card; the geometry of phase 9's prompts (its cache 1032 long: 4
+# and 8 ranks divide it) and 8 steps.  Every path runs in f32 compute on
+# the bf16 serving weights, each step's logits held within
+# F32_FAMILY_TOL x that step's max |logit| (the CPU tests hold 1e-5 at
+# smoke width; the sums here are longer); (b), the sequence-sharded
+# cache and the partial mode, also in bf16 compute, which times the
+# partial mode at the serving dtype and holds its first logits to
+# family_bound
+MESH_FAMILIES = (("a", "qwen3-8b", 4, 4, "float32"),
+                 ("b", "qwen3-moe-30b-a3b", 4, 8, None),
+                 ("b f32", "qwen3-moe-30b-a3b", 4, 8, "float32"),
+                 ("c", "mamba2-370m", None, 4, "float32"),
+                 ("c", "zamba2-2.7b", 6, 4, "float32"),
+                 ("c", "whisper-tiny", None, 4, "float32"))
+F32_FAMILY_TOL = 1e-4
+MESH_FAMILY_GEOM = dict(batch=8, seq=1024, steps=8)
+MESH_FAMILY_SMOKE = dict(batch=2, seq=29, steps=3)     # a cache of 32
+# the dry run of 19a's cells on the tree whose meshed steps gathered
+# every weight but the experts' and the whole cache over ``model``
+# (8b0a094; ``python -m repro_torch.launch.dryrun --arch <a> --shape all
+# --both-meshes`` on the host): working set a device as its PeakCounter
+# read it (the arguments' own storages counted again where ``to_local``
+# first showed them), FLOPs a device, collective operand bytes a device,
+# and the working set re-read there with this tree's ``PeakCounter``
+# (``launch/dryrun.py`` swapped in)
+MESH_GATHERED = {
+    "qwen3-8b|train_4k|single": (
+        64010502172, 1.32078834286592e15, 83256905812, 64008744988),
+    "qwen3-8b|train_4k|multi": (
+        40255373340, 6.6039417143296e14, 59330682976, 40253878300),
+    "qwen3-8b|prefill_32k|single": (
+        63049617408, 3.21609640443904e14, 20879638528, 62369261568),
+    "qwen3-8b|prefill_32k|multi": (
+        35668938752, 1.60804820221952e14, 10611982336, 34988713984),
+    "qwen3-8b|decode_32k|single": (
+        86939062336, 1.94171109376e11, 2762604544, 86258968640),
+    "qwen3-8b|decode_32k|multi": (
+        47076397088, 9.7085554688e10, 1553465344, 46396303392),
+    "qwen3-moe-30b-a3b|train_4k|single": (
+        49492115492, 7.7171972374528e14, 71951138912, 48987430948),
+    "qwen3-moe-30b-a3b|train_4k|multi": (
+        29780295716, 3.8585986187264e14, 47916523640, 29275873316),
+    "qwen3-moe-30b-a3b|prefill_32k|single": (
+        62355922948, 5.228190236672e14, 18310430720, 58706194436),
+    "qwen3-moe-30b-a3b|prefill_32k|multi": (
+        36988510212, 2.614095118336e14, 11062673408, 33338912772),
+    "qwen3-moe-30b-a3b|decode_32k|single": (
+        63696789568, 4.57762144256e11, 5427101696, 60047323200),
+    "qwen3-moe-30b-a3b|decode_32k|multi": (
+        25847581320, 3.4484518912e11, 4621008896, 22198114920)}
 MESH_SMOKE = False           # the CPU test's smoke sizes (never on the card)
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
@@ -1395,6 +1468,7 @@ KERNEL_OPS = {"gather_blocks": GO, "quant_topk": QO, "distance_topk": DO,
 def _reset_launches() -> None:
     for ops in KERNEL_OPS.values():
         ops.launches = 0
+    DA.partial_launches = 0
 
 
 def _launches() -> dict:
@@ -4364,6 +4438,40 @@ dist.destroy_process_group()
 """
 
 
+# one rank of phase 19f: argv = src dir, rank, tmp dir, model ranks, runs
+# (JSON: [tag, arch, depth, dtype, the unmeshed path's .npz]), device,
+# smoke (1: smoke configs), geometry (JSON); writes
+# fam<model>_rank<rank>.npz
+MESH_FAMILY_RANK = r"""
+import faulthandler, json, sys
+faulthandler.enable()
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+rank, tmp, model = int(sys.argv[2]), sys.argv[3], int(sys.argv[4])
+runs, dev = json.loads(sys.argv[5]), sys.argv[6]
+smoke, geom = sys.argv[7] == "1", json.loads(sys.argv[8])
+if dev == "cuda":
+    torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv_fam{model}",
+                        world_size=model, rank=rank)
+from torch.distributed.device_mesh import init_device_mesh
+sys.path.insert(0, sys.argv[1] + "/..")
+import chip_smoke as CS
+mesh = init_device_mesh(dev, (1, model), mesh_dim_names=("data", "model"))
+out = {}
+for tag, arch, depth, dtype, want in runs:
+    got = CS.family_meshed(mesh, torch.device(dev),
+                           CS.family_config(arch, depth, smoke, dtype), want,
+                           **geom)
+    out.update({f"{tag} {arch}|{k}": v for k, v in got.items()})
+    CS._free(torch.device(dev))
+np.savez(f"{tmp}/fam{model}_rank{rank}.npz", **out)
+dist.destroy_process_group()
+"""
+
+
 def _spawn(code: str, args_of, n: int, what: str, tmp: str,
            out_of) -> list:
     """Run ``n`` processes of ``code`` (argv: the src dir, then
@@ -4454,6 +4562,17 @@ def phase_mesh_dryrun() -> dict:
                                  f"argument bytes, the reference compiled "
                                  f"{want['compiled_argument_size_bytes']}")
         c = r["collectives"]
+        ws, flops = r["memory"]["working_set_bytes"], r["cost"]["flops"]
+        args = mem["argument_size_bytes"]
+        if r["shape"].startswith("decode") and ws > 2 * args:
+            raise AssertionError(f"19a {key}: working set {ws} B a device "
+                                 f"> twice its {args} B of arguments")
+        dense = get_config(r["arch"]).family == "dense"
+        if (r["shape"].startswith("train") and dense
+                and flops > 2 * r["model_flops"] / r["n_devices"]):
+            raise AssertionError(f"19a {key}: {flops:.4g} FLOPs a device > "
+                                 f"twice its model FLOPs")
+        old = MESH_GATHERED.get(key)
         n_cells += 1
         log(f"[19a dry run] {key}: {r['n_devices']} ranks, params "
             f"{mem['param_bytes']} opt {mem['opt_bytes']} cache "
@@ -4471,7 +4590,12 @@ def phase_mesh_dryrun() -> dict:
             f" B), wire {c['wire_bytes_per_device']:.4g} B a device; "
             f"micro-steps {r['micro_steps']}; traced at units "
             f"{r['traced_units']['traced']} of {r['traced_units']['units']} "
-            f"in {r['trace_s']} s ({r['wall_s']:.2f} s with the bytes)")
+            f"in {r['trace_s']} s ({r['wall_s']:.2f} s with the bytes)"
+            + (f" | the gathering tree: working set {old[3]:.6g} B "
+               f"({ws / old[3]:.4f} of it; {old[0]:.6g} B as its own counter "
+               f"read it), flops {old[1]:.4g} ({flops / old[1]:.4f}), "
+               f"collective operand {old[2]:.4g} B "
+               f"({c['operand_bytes_total'] / old[2]:.4f})" if old else ""))
     if n_cells != len(archs) * len(shapes) * 2 or len(counts) != 6:
         raise AssertionError(f"19a: {n_cells} cells, {len(counts)} (1, 4) "
                              f"counts")
@@ -4888,11 +5012,372 @@ def phase_mesh_dhnsw(device, mesh1, counts: dict, *, world: int,
     log(f"[19e] {time.perf_counter() - t0:.1f} s with the ranks' start")
 
 
+def family_config(arch: str, depth, smoke: bool, dtype=None):
+    """19f's configuration of ``arch``: full width (the smoke config's
+    with ``smoke``), ``depth`` layers and compute ``dtype`` where given."""
+    cfg = (smoke_config if smoke else get_config)(arch)
+    if depth is not None:
+        cfg = cfg.replace(n_layers=depth)
+    return cfg if dtype is None else cfg.replace(dtype=dtype)
+
+
+def family_inputs(cfg, device, batch: int, seq: int) -> dict:
+    """19f's prompts (and whisper's frames), drawn from a seed on
+    ``device``: the same in every process."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                    generator=gen, device=device)
+    return out
+
+
+def family_unmeshed(cfg, device, *, batch: int, seq: int,
+                    steps: int) -> dict:
+    """19f's unmeshed path on the card: the serving weights drawn from
+    ``SEED`` (``serve_param_defs``: bf16), ``model.prefill`` into a cache
+    of seq + steps and ``steps`` greedy ``decode_step``s.  Returns the
+    tokens (B, steps + 1), every step's logits (B, steps + 1, V) f32 on
+    the host, each step's top-2 logit gap a row, ms a decode step, and in
+    bf16 ``eps``: the first logits' largest distance from the same path
+    in f32 (the weights' values cast up, f32 compute): its own bf16
+    rounding."""
+    total = seq + steps
+    params = PR.init_params(LM.serve_param_defs(cfg), torch.Generator(
+        device=device).manual_seed(SEED))
+    inputs = family_inputs(cfg, device, batch, seq)
+    toks, gaps, every, ms = [], [], [], []
+    with torch.no_grad():
+        logits, cache = LM.prefill(cfg, params, inputs, total)
+        logits = logits[:, -1]
+        for i in range(steps + 1):
+            every.append(logits.float().cpu())
+            top2 = torch.topk(logits.float(), 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+            toks.append(logits.argmax(-1).to(torch.int32))
+            if i == steps:
+                break
+            pos = torch.full((batch,), seq + i, dtype=torch.int32,
+                             device=device)
+            _sync(device)
+            t = time.perf_counter()
+            logits, cache = LM.decode_step(cfg, params, cache, toks[-1], pos)
+            _sync(device)
+            ms.append((time.perf_counter() - t) * 1e3)
+        del cache
+        eps = None
+        if cfg.dtype == "bfloat16":
+            c32 = cfg.replace(dtype="float32")
+            p32 = TREE.tree_map(lambda t: t.float(), params)
+            del params
+            f32 = LM.prefill(c32, p32, inputs, total)[0][:, -1]
+            eps = float((every[0] - f32.cpu()).abs().max())
+            del p32, f32
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(),
+            "logits": torch.stack(every, 1).numpy(),
+            "gaps": torch.stack(gaps, 1).numpy(), "ms": ms, "eps": eps}
+
+
+def _placed_params(defs, shardings, device) -> dict:
+    """``init_params(defs, SEED)``'s values, drawn leaf by leaf in its
+    order on ``device``, each leaf kept as this rank's shard (a DTensor
+    placed by ``shardings``): no rank holds the whole model."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out: dict = {}
+    for path, d in PR._leaves(defs):
+        sh = shardings
+        for key in path:
+            sh = sh[key]
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = PR.shard_tensor(PR.init_leaf(d, gen), sh)
+    return out
+
+
+def _grow_cache(c, sh, shape, seq: int, mesh):
+    """A prefill's cache tensor ``c`` (a DTensor over ``seq`` positions)
+    as the decode's of ``shape`` placed by ``sh``: sequence shards
+    gathered over ``model`` (the list form of all-gather, which gloo runs
+    on CUDA tensors), zeros past the prompt, cut again."""
+    from torch.distributed.tensor import DTensor
+    loc = c.to_local()
+    m = list(mesh.mesh_dim_names).index("model")
+    if c.placements[m].is_shard(2):
+        parts = [torch.empty_like(loc) for _ in range(mesh.size(m))]
+        dist.all_gather(parts, loc.contiguous(), group=mesh.get_group(m))
+        loc = torch.cat(parts, 2)
+    grown = loc.new_zeros(loc.shape[:2] + (shape[2],) + loc.shape[3:])
+    grown[:, :, :seq] = loc
+    if "model" in sh.spec and sh.spec.index("model") == 2:
+        n = shape[2] // mesh.size(m)
+        grown = grown[:, :, mesh.get_local_rank("model") * n:][:, :, :n]
+    return DTensor.from_local(grown.contiguous(), mesh, sh.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=PR.contiguous_stride(shape))
+
+
+def _partial_check(q, k, v, n, device) -> dict:
+    """``decode_attention``'s partial mode against its plain version on a
+    shard's captured inputs and with every other row's shard emptied
+    (count 0: a zero row and lse -inf): out at ``F32_TOL`` (f32 rows both
+    ways), lse within 1e-5; on the card timed beside the plain version
+    and SDPA at the shard's shape, and its bytes bound."""
+    def check(n):
+        o, lse = DA.decode_attention(q, k, v, n, partial=True)
+        wo, wl = decode_attention_ref(q, k, v, n, partial=True)
+        fin = torch.isfinite(wl)
+        if not (torch.allclose(o, wo, **F32_TOL)
+                and torch.equal(torch.isneginf(lse), torch.isneginf(wl))
+                and torch.allclose(lse[fin], wl[fin], atol=1e-5, rtol=0)
+                and not o[n == 0].any()):
+            raise AssertionError("19f decode_attention partial mode != "
+                                 "its plain version")
+        return float((o - wo).abs().max())
+    empty = n.clone()
+    empty[::2] = 0
+    out = {"err": max(check(n), check(empty)), "shape": list(q.shape)
+           + list(k.shape[1:]), "counts": n.tolist()}
+    if device.type == "cuda":
+        B, H, hd = q.shape
+        S, K = k.shape[1], k.shape[2]
+        valid = int(n.clamp(0, S).sum())
+        out["bound_ms"] = (2 * valid * K * hd * k.element_size()
+                           + q.numel() * q.element_size()
+                           + 4 * q.numel() + 4 * B * H + 4 * B) \
+            / PEAK_BYTES_S * 1e3
+        out["ms"] = device_ms(lambda: DA.decode_attention(
+            q, k, v, n, partial=True), 20)
+        out["plain_ms"] = device_ms(lambda: decode_attention_ref(
+            q, k, v, n, partial=True), 3)
+        mask = (torch.arange(S, device=device)[None, :]
+                < n[:, None])[:, None, None, :]
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        # SDPA at the shard's shape: a full row stands in for an empty one
+        # (SDPA's softmax of a row with no key is not defined)
+        mask = mask | (n[:, None, None, None] == 0)
+        out["sdpa_ms"] = device_ms(lambda: _sdpa(q, kt, vt, mask), 5)
+    return out
+
+
+def family_meshed(mesh, device, cfg, want: str, *, batch: int, seq: int,
+                  steps: int) -> dict:
+    """One 19f rank's run: ``make_prefill_step`` then ``steps``
+    ``make_decode_step``s on ``mesh``, the weights drawn as
+    ``family_unmeshed`` draws them (each rank keeping its shards), each
+    step fed the unmeshed path's token (``want``: an ``.npz`` of its
+    tokens and logits), so that every step's logits answer the same
+    question as the unmeshed path's.  The launch counts are set to 0
+    before the prefill and read after the last step.  Returns each
+    step's argmax and largest distance from the unmeshed logits a row
+    (the logits gathered: the same on every rank), ms a decode step, the
+    launches and the partial mode's (``ops.partial_launches``), and the
+    partial mode's check at its first call's inputs where it ran."""
+    total = seq + steps
+    ref = np.load(want)
+    ref_toks = torch.from_numpy(ref["tokens"]).to(device)
+    pre, (p_sh, b_sh), _, _ = TS.make_prefill_step(
+        cfg, InputShape("prefill", seq, batch, "prefill"), mesh)
+    dec, (_, c_sh, t_sh, q_sh), _, (_, c_abs, _, _) = TS.make_decode_step(
+        cfg, InputShape("decode", total, batch, "decode"), mesh)
+    params = _placed_params(LM.serve_param_defs(cfg), p_sh, device)
+    inputs = {k: PR.shard_tensor(v, b_sh[k])
+              for k, v in family_inputs(cfg, device, batch, seq).items()}
+    real, first = DA.decode_attention, []
+
+    def spy(q, k, v, pos, **kw):    # keeps the first partial call's inputs
+        if kw.get("partial") and not first:
+            first.append(tuple(t.clone() for t in (q, k, v, pos)))
+        return real(q, k, v, pos, **kw)
+    DA.decode_attention = spy
+    toks, errs, ms = [], [], []
+
+    def seen(logits, i):       # logits: this rank's (B, V)
+        got = logits.float().cpu()
+        toks.append(got.argmax(-1).to(torch.int32))
+        errs.append((got - torch.from_numpy(ref["logits"][:, i]))
+                    .abs().amax(-1))
+    try:
+        with torch.no_grad():
+            _reset_launches()
+            logits, short = pre(params, inputs)
+            # the sequence caches (seq long here, total in the decode's)
+            # grow; the O(1) and cross-attention ones pass as they are
+            cache = tuple(_grow_cache(c, sh, a.shape, seq, mesh)
+                          if c.shape[2] == seq and a.shape[2] == total
+                          else c for c, sh, a in zip(short, c_sh, c_abs))
+            del short
+            seen(logits.to_local()[:, -1], 0)
+            for i in range(steps):
+                pos = torch.full((batch,), seq + i, dtype=torch.int32,
+                                 device=device)
+                _sync(device)
+                t = time.perf_counter()
+                logits, cache = dec(params, cache,
+                                    PR.shard_tensor(ref_toks[:, i], t_sh),
+                                    PR.shard_tensor(pos, q_sh))
+                _sync(device)
+                ms.append((time.perf_counter() - t) * 1e3)
+                seen(logits.to_local(), i + 1)
+            launches, partial = _launches(), DA.partial_launches
+    finally:
+        DA.decode_attention = real
+    out = {"tokens": torch.stack(toks, 1).numpy(),
+           "errs": torch.stack(errs, 1).numpy(), "ms": np.asarray(ms),
+           "da": launches["decode_attention"], "partial": partial}
+    if first:
+        for k, v in _partial_check(*first[0], device).items():
+            out["pc_" + k] = np.asarray(v)
+    return out
+
+
+def family_bound(eps: float, tp: int) -> float:
+    """19f's bound on a logit's distance between the meshed and the
+    unmeshed path, stated before the first chip run: both are bf16
+    roundings of one f32 computation, the unmeshed within ``eps`` of it
+    (its f32 twin, measured); a row-parallel sum over ``tp`` ranks
+    rounds each of the tp partial products to bf16 and adds them in
+    bf16, 2 tp - 1 roundings where the unmeshed product rounds once, so
+    the meshed path lies within (2 tp - 1) eps of the f32 result and
+    within 2 tp eps of the unmeshed path."""
+    return 2 * tp * eps
+
+
+def phase_mesh_families(device, smi: str) -> int:
+    """Phase 19f: every family's meshed prefill and decode steps over
+    gloo rank processes on the card (``MESH_FAMILIES``), each against
+    ``family_unmeshed`` on the same card and seed, every decode step fed
+    the unmeshed path's token.  On every rank each step's logits lie
+    within the path's bound of the unmeshed ones (f32 compute: every
+    step, ``F32_FAMILY_TOL`` x that step's max |logit|; bf16: the first
+    step, ``family_bound``), and each argmax equals the unmeshed token
+    wherever the unmeshed top-2 gap exceeds that bound.  Where the cache
+    lies over its sequence, every rank launched the partial mode on every
+    decode layer (``ops.partial_launches``), held against its plain
+    version.  Returns the ranks' ``decode_attention`` launches."""
+    t19 = time.perf_counter()
+    geom = MESH_FAMILY_SMOKE if MESH_SMOKE else MESH_FAMILY_GEOM
+    da = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fam_") as tmp:
+        want = {}
+        for n, (tag, arch, depth, model, dtype) in enumerate(MESH_FAMILIES):
+            _free(device)
+            t = time.perf_counter()
+            w = family_unmeshed(family_config(arch, depth, MESH_SMOKE, dtype),
+                                device, **geom)
+            w["s"] = time.perf_counter() - t
+            w["path"] = f"{tmp}/want{n}.npz"
+            np.savez(w["path"], tokens=w["tokens"], logits=w["logits"])
+            want[tag, arch] = w
+        _free(device)
+        for model in sorted({f[3] for f in MESH_FAMILIES}):
+            runs = [(tag, arch, depth, dt, want[tag, arch]["path"])
+                    for tag, arch, depth, m, dt in MESH_FAMILIES
+                    if m == model]
+            t = time.perf_counter()
+            res = _spawn(MESH_FAMILY_RANK, lambda r: (
+                r, tmp, model, json.dumps(runs), device.type,
+                int(MESH_SMOKE), json.dumps(geom)), model, f"19f {model}",
+                tmp, lambda r: f"fam{model}_rank{r}.npz")
+            spawn_s = time.perf_counter() - t
+            for tag, arch, depth, dt, _ in runs:
+                cfg = family_config(arch, depth, MESH_SMOKE, dt)
+                w = want[tag, arch]
+                key = f"{tag} {arch}"
+                top = np.abs(w["logits"]).max(axis=(0, 2))   # a step
+                if w["eps"] is None:        # f32 compute
+                    bound, held = F32_FAMILY_TOL * top, len(top)
+                    why = (f"{F32_FAMILY_TOL:g} x the step's max |logit|, "
+                           f"{top.min():.4g}-{top.max():.4g}")
+                else:
+                    bound, held = np.full(top.shape, family_bound(
+                        w["eps"], model)), 1
+                    why = f"2 x {model} x eps {w['eps']:.4g}"
+                checked = w["gaps"] > bound[None, :]
+                for r, got in enumerate(res):
+                    toks, errs = got[f"{key}|tokens"], got[f"{key}|errs"]
+                    for b, i in np.argwhere(checked & (toks != w["tokens"])):
+                        raise AssertionError(
+                            f"19f {arch} rank {r} row {b} step {i}: token "
+                            f"{toks[b, i]}, the unmeshed {w['tokens'][b, i]}"
+                            f" (top-2 gap {w['gaps'][b, i]:.4g} > bound "
+                            f"{bound[i]:.4g})")
+                    for b, i in np.argwhere(errs[:, :held]
+                                            > bound[None, :held]):
+                        raise AssertionError(
+                            f"19f {arch} rank {r} row {b} step {i}: logits "
+                            f"{errs[b, i]:.4g} from the unmeshed, bound "
+                            f"{bound[i]:.4g}")
+                    da += int(got[f"{key}|da"])
+                errs = np.stack([g[f"{key}|errs"] for g in res])
+                rel = errs / top[None, None, :]
+                kv = TF.kv_layout(cfg, PR.AbstractMesh(
+                    (1, model), ("data", "model")), geom["seq"]
+                    + geom["steps"]) if cfg.n_kv_heads else "none"
+                n_attn = (cfg.n_layers if cfg.family != "hybrid"
+                          else cfg.n_layers // cfg.attn_every)
+                line = ""
+                if kv == "seq" and cfg.family != "ssm":
+                    parts = [int(g[f"{key}|partial"]) for g in res]
+                    if device.type == "cuda" and parts != [
+                            n_attn * geom["steps"]] * model:
+                        raise AssertionError(f"19f {arch}: partial-mode "
+                                             f"launches {parts} a rank")
+                    pc = {k[len(key) + 4:]: v for k, v in res[0].items()
+                          if k.startswith(f"{key}|pc_")}
+                    line = (f"; partial mode {parts} launches a rank, at "
+                            f"the first call's shard (B, H, hd, S_l, K, hd) "
+                            f"= {pc['shape'].tolist()} equal to its plain "
+                            f"version (max |diff| {float(pc['err']):.3g}, "
+                            f"empty rows included)")
+                    if "ms" in pc:
+                        line += (f": {float(pc['ms']):.4f} ms, bound "
+                                 f"{float(pc['bound_ms']):.4f} ms (bytes), "
+                                 f"plain {float(pc['plain_ms']):.4f} ms, SDPA"
+                                 f" {float(pc['sdpa_ms']):.4f} ms")
+                ms = np.concatenate([g[f"{key}|ms"][1:] for g in res])
+                log(f"[19f mesh {tag}] {cfg.name} ({cfg.n_layers} layers, "
+                    f"{cfg.dtype} compute on bf16 weights) on (1, {model}) "
+                    f"gloo ranks on {device.type}, kv "
+                    f"cache {kv or 'whole'}: {batch_line(geom)}, each "
+                    f"meshed step fed the unmeshed token; argmax equal to "
+                    f"the unmeshed token on every rank at {int(checked.sum())}"
+                    f" of {checked.size} (row, step), every one whose "
+                    f"unmeshed top-2 gap exceeds the bound ({why}; gaps at "
+                    f"step 0 {np.round(w['gaps'][:, 0], 4).tolist()}); "
+                    f"logits of {held} of {len(top)} steps within "
+                    f"{errs[:, :, :held].max():.4g} "
+                    f"({rel[:, :, :held].max():.3g} of the step's max "
+                    f"|logit|; bound {bound[:held].min():.4g}"
+                    f"{'' if held == 1 else ' or more'})"
+                    + ("" if held == len(top) else
+                       f", later steps within {rel.max():.3g} of it, not held")
+                    + line + f" | ms a decode step meshed (host clock, "
+                    f"each rank, steps 2 on) {np.median(ms):.2f} "
+                    f"[{ms.min():.2f}, {ms.max():.2f}], unmeshed "
+                    f"{np.median(w['ms'][1:] or w['ms']):.2f}; "
+                    f"decode_attention launches "
+                    f"{[int(g[f'{key}|da']) for g in res]} a rank | "
+                    f"unmeshed {w['s']:.1f} s")
+            log(f"[19f] {model} ranks: {spawn_s:.1f} s with their start "
+                f"| {smi}")
+    log(f"[19f] {time.perf_counter() - t19:.1f} s")
+    return da
+
+
+def batch_line(geom: dict) -> str:
+    return (f"{geom['batch']} prompts x {geom['seq']} tokens, "
+            f"{geom['steps']} greedy steps")
+
+
 def phase_mesh(device, smi: str, *, step_17a: float) -> int:
     """Phase 19, the mesh: (a) the dry runs (host only), then on a host
     mesh of one NCCL rank (b) the meshed train step and (c) the meshed
-    serve steps, (d) ``_moe_shardmap`` and (e) the d-HNSW step over gloo
-    ranks on the card.  Returns 19c's ``decode_attention`` launches."""
+    serve steps, (d) ``_moe_shardmap``, (e) the d-HNSW step and (f) every
+    family's meshed serve steps over gloo ranks on the card.  Returns
+    the ``decode_attention`` launches of 19c and 19f."""
     from repro_torch.launch.mesh import make_host_mesh
     t19 = time.perf_counter()
     counts = phase_mesh_dryrun()
@@ -4908,6 +5393,7 @@ def phase_mesh(device, smi: str, *, step_17a: float) -> int:
             da = phase_mesh_serve(device, mesh, arch=RAG_ARCH, **MESH_SERVE)
             phase_mesh_moe(device, **MESH_MOE)
             phase_mesh_dhnsw(device, mesh, counts, **MESH_DHNSW)
+            da += phase_mesh_families(device, smi)
         finally:
             dist.destroy_process_group()
     log(f"[19] {time.perf_counter() - t19:.1f} s")

@@ -55,7 +55,8 @@ SIGNATURES = {
     # q, k, v, pos, part_ml, part_acc, arrivals, out,
     # B, S, K, G, hd, n_split, split_len, warps, wph, bf16, stream
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                _P],
 }
 
 _lock = threading.Lock()

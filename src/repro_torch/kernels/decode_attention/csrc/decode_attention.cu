@@ -54,6 +54,12 @@
 // pos = 0 (every entry masked) gives l = 0 and a zero row, as the Pallas
 // kernel gives (its oracle returns the mean of v there).  A pos above S is
 // read as S.
+//
+// Partial mode (lse != null), for a cache sharded by sequence over
+// ranks: the combine writes each row in f32 (out is then float) and its
+// log-sum-exp ln(l) + m ln 2 (natural units; -inf where l = 0) to
+// lse[b, h], so that the ranks' rows merge by exp(lse - max lse)
+// weights.  The per-split (m, l) it already keeps are all it needs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,6 +72,7 @@ constexpr int kStages = 2;           // cp.async ring: one step in flight ahead
 constexpr int kSplitTile = 64;       // split ranges are whole 64-key tiles
 constexpr float kNeg = -1e30f;       // the running max before any key
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 8 consecutive elements of T: one lane's columns of a row, as raw
 // registers (from global memory, or from the lane's chunks in the ring)
@@ -154,8 +161,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float* __restrict__ part_ml,
                         float* __restrict__ part_acc,
                         unsigned* __restrict__ arrivals, T* __restrict__ out,
-                        int S, int K, int G, int hd, int lpk, int split_len,
-                        int wph, float qscale) {
+                        float* __restrict__ lse, int S, int K, int G, int hd,
+                        int lpk, int split_len, int wph, float qscale) {
   constexpr int U = kUnroll<GM>;
   constexpr int CH = sizeof(T) / 2;     // 16-byte chunks of a lane's 8 columns
   using R = Row8<T>;
@@ -427,6 +434,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += w * __ldcg(ml + j * G * 2 + 1);
     }
     s_w[t * (n_live + 1) + n_live] = fmaxf(sum, 1e-30f);
+    if (lse)
+      lse[(long long)b * H + (kh0 + h) * G + g] =
+          sum > 0.f ? (mx + log2f(sum)) * kLn2 : -INFINITY;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n_heads * G * hd; i += nt) {
@@ -436,17 +446,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float a = 0.f;
 #pragma unroll 4
     for (int j = 0; j < n_live; ++j) a += w[j] * __ldcg(pa + (long long)j * G * hd);
-    R::store(out + ((long long)b * H + (long long)(kh0 + h) * G) * hd + r,
-             a / w[n_live]);
+    const long long o = ((long long)b * H + (long long)(kh0 + h) * G) * hd + r;
+    if (lse)
+      reinterpret_cast<float*>(out)[o] = a / w[n_live];
+    else
+      R::store(out + o, a / w[n_live]);
   }
 }
 
 template <typename T, int GM>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* pos, float* part_ml, float* part_acc,
-                   unsigned* arrivals, void* out, int B, int S, int K, int G,
-                   int hd, int n_split, int split_len, int warps, int wph,
-                   cudaStream_t stream) {
+                   unsigned* arrivals, void* out, float* lse, int B, int S,
+                   int K, int G, int hd, int n_split, int split_len,
+                   int warps, int wph, cudaStream_t stream) {
   const float qscale = (float)(1.0 / sqrt((double)hd)) * kLog2e;
   int lpk = 1;
   while (lpk * 8 < hd) lpk <<= 1;
@@ -469,19 +482,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
          stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos, part_ml, part_acc, arrivals,
-      static_cast<T*>(out), S, K, G, hd, lpk, split_len, wph, qscale);
+      static_cast<T*>(out), lse, S, K, G, hd, lpk, split_len, wph, qscale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_g(const void* q, const void* k, const void* v,
                      const int* pos, float* part_ml, float* part_acc,
-                     unsigned* arrivals, void* out, int B, int S, int K,
-                     int G, int hd, int n_split, int split_len, int warps,
-                     int wph, cudaStream_t stream) {
+                     unsigned* arrivals, void* out, float* lse, int B,
+                     int S, int K, int G, int hd, int n_split, int split_len,
+                     int warps, int wph, cudaStream_t stream) {
 #define DA_LAUNCH(GM)                                                     \
-  return launch<T, GM>(q, k, v, pos, part_ml, part_acc, arrivals, out, B, \
-                       S, K, G, hd, n_split, split_len, warps, wph, stream)
+  return launch<T, GM>(q, k, v, pos, part_ml, part_acc, arrivals, out,    \
+                       lse, B, S, K, G, hd, n_split, split_len, warps, wph, \
+                       stream)
   if (G <= 1) DA_LAUNCH(1);
   if (G <= 2) DA_LAUNCH(2);
   if (G <= 4) DA_LAUNCH(4);
@@ -499,13 +513,15 @@ cudaError_t launch_g(const void* q, const void* k, const void* v,
 // and left 0 after it; out like q.  split_len is a multiple of the 64-key
 // tile and n_split * split_len >= S; warps (1..8) is the CTA's width and
 // wph (a power of two dividing warps) the warps that share a kv head.
+// lse: null, or (B, K * G) f32 for the partial mode (out is then f32).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* pos,
                                        void* part_ml, void* part_acc,
                                        void* arrivals, void* out, int B,
                                        int S, int K, int G, int hd,
                                        int n_split, int split_len, int warps,
-                                       int wph, int bf16, void* stream) {
+                                       int wph, int bf16, void* stream,
+                                       void* lse) {
   if (B <= 0) return 0;
   if (hd <= 0 || hd % 8 || hd > 256 || G < 1 || G > 16 || S < 1 ||
       n_split < 1 || n_split > 65535 || split_len < kSplitTile ||
@@ -518,10 +534,12 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
   unsigned* arr = static_cast<unsigned*>(arrivals);
+  float* ls = static_cast<float*>(lse);
   cudaError_t err =
-      bf16 ? launch_g<__nv_bfloat16>(q, k, v, p, ml, acc, arr, out, B, S, K,
-                                     G, hd, n_split, split_len, warps, wph, s)
-           : launch_g<float>(q, k, v, p, ml, acc, arr, out, B, S, K, G, hd,
-                             n_split, split_len, warps, wph, s);
+      bf16 ? launch_g<__nv_bfloat16>(q, k, v, p, ml, acc, arr, out, ls, B, S,
+                                     K, G, hd, n_split, split_len, warps, wph,
+                                     s)
+           : launch_g<float>(q, k, v, p, ml, acc, arr, out, ls, B, S, K, G,
+                             hd, n_split, split_len, warps, wph, s);
   return (int)err;
 }

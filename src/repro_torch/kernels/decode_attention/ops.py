@@ -6,12 +6,19 @@ the card; there is no fallback from one to the other.  Either way the
 result follows the reference wrapper's contract
 (``repro/kernels/decode_attention/ops.py``): ``(B, H, hd)`` in q's
 dtype.  ``launches`` counts kernel launches: one per call, the combine
-of the splits included.
+of the splits included; ``partial_launches`` those of them in the
+partial mode.
 
 One behaviour differs between the two, as it does in the reference: at
 ``pos = 0`` the kernel returns zeros (the Pallas kernel skips every
 block) and the plain version the mean of v (the oracle's softmax over an
 all-masked row).  The decode path never passes 0.
+
+``partial=True`` is for a cache sharded by sequence over ranks: each
+rank attends its shard (``pos`` its count of valid entries there, 0
+allowed) and gets the softmax over those keys alone in f32 and its
+log-sum-exp, -inf with a zero row where it has none (both versions
+alike), which ``layers.merge_parts`` merges over the ranks.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.obs.trace import TRACER
 
 launches = 0
+partial_launches = 0
 HD_MAX = 256         # longest head the kernel takes (a multiple of 8)
 G_MAX = 16           # most query heads per kv head
 _TILE = 64           # split ranges are whole tiles of this many keys
@@ -87,10 +95,12 @@ def arrivals(device, n: int) -> torch.Tensor:
 
 
 def _launch(q, k, v, pos, part_ml, part_acc, out, n_split: int,
-            split_len: int, warps: int = WARPS, wph: int | None = None) -> None:
+            split_len: int, warps: int = WARPS, wph: int | None = None,
+            lse=None) -> None:
     """Launch the kernel into preallocated buffers (no checks, not
     counted).  ``wph`` defaults to ``warps_per_head``; both are cut to
-    what the CTA and the kv heads can use."""
+    what the CTA and the kv heads can use.  ``lse`` (B, H) f32: the
+    partial mode (``out`` then f32)."""
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     wph = min(wph or warps_per_head(B, K), warps)
@@ -103,7 +113,8 @@ def _launch(q, k, v, pos, part_ml, part_acc, out, n_split: int,
         part_ml.data_ptr(), part_acc.data_ptr(),
         arrivals(q.device, B * K).data_ptr(), out.data_ptr(), B, S, K,
         H // K, hd, n_split, split_len, warps, wph,
-        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
+        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device),
+        None if lse is None else lse.data_ptr())
     _build.check(err, "decode_attention")
 
 
@@ -123,8 +134,8 @@ def buffers(q, k, n_split: int | None = None,
             torch.empty_like(q), n_split, split_len)
 
 
-def _cuda(q, k, v, pos):
-    global launches
+def _cuda(q, k, v, pos, partial=False):
+    global launches, partial_launches
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
@@ -142,23 +153,33 @@ def _cuda(q, k, v, pos):
                          "and v must start on a 16-byte boundary")
     pos = pos.to(torch.int32).contiguous()
     part_ml, part_acc, out, n_split, split_len = buffers(q, k)
+    lse = None
+    if partial:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
     if B:
-        _launch(q, k, v, pos, part_ml, part_acc, out, n_split, split_len)
+        _launch(q, k, v, pos, part_ml, part_acc, out, n_split, split_len,
+                lse=lse)
         launches += 1
-    return out
+        partial_launches += int(partial)
+    return (out, lse) if partial else out
 
 
-def _plain(q, k, v, pos):
-    """The plain version with the kernel's contract (q's dtype)."""
+def _plain(q, k, v, pos, partial=False):
+    """The plain version with the kernel's contract (q's dtype, or the
+    partial mode's f32 pair)."""
+    if partial:
+        return decode_attention_ref(q, k, v, pos, partial=True)
     return decode_attention_ref(q, k, v, pos).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor):
+                     pos: torch.Tensor, *, partial: bool = False):
     """One-token GQA attention against a KV cache.
 
     q (B, H, hd); k/v (B, S, K, hd); pos (B,) = number of valid cache
-    entries per sequence -> (B, H, hd) in q's dtype."""
+    entries per sequence -> (B, H, hd) in q's dtype; with ``partial``
+    (out (B, H, hd) f32, lse (B, H) f32)."""
     _check(q, k, v, pos)
     if q.device.type == "cpu":
         impl, fn = "ref", _plain
@@ -167,12 +188,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if not TRACER.enabled:
-        return fn(q, k, v, pos)
+        return fn(q, k, v, pos, partial)
     B, H, hd = q.shape
     with TRACER.span("kernel.decode_attention", tier="kernel", impl=impl,
                      B=int(B), H=int(H), K=int(k.shape[2]), S=int(k.shape[1]),
                      hd=int(hd)):
-        out = fn(q, k, v, pos)
+        out = fn(q, k, v, pos, partial)
         if impl == "cuda":
             torch.cuda.synchronize(q.device)
         return out

@@ -82,12 +82,18 @@ class PeakCounter(TorchDispatchMode):
     """While active, the bytes of the storages the dispatched ops create
     that are still alive, and their peak: the step's transient working
     set (gathered weights, activations saved for the backward,
-    gradients, temporaries) above the arguments it was handed."""
+    gradients, temporaries) above the arguments it was handed.  The
+    arguments' own storages (``args``: a tree of tensors and DTensors)
+    are not counted when an op first shows them (a view, ``to_local``)."""
 
-    def __init__(self):
+    def __init__(self, args=()):
         super().__init__()
         self.live = self.peak = 0
         self._seen = WeakIdKeyDictionary()
+        for t in T.leaves(args):
+            t = getattr(t, "_local_tensor", t)
+            if isinstance(t, torch.Tensor):
+                self._seen[t.untyped_storage()] = 0
 
     def _free(self, n: int) -> None:
         self.live -= n
@@ -247,7 +253,7 @@ def trace_cost(cfg, shape, mesh, micro_steps: int = 1, *,
                 cc = stack.enter_context(CollectiveCounter())
                 flops = stack.enter_context(FlopCounterMode(display=False))
                 bc = stack.enter_context(BytesCounter())
-            pc = stack.enter_context(PeakCounter())
+            pc = stack.enter_context(PeakCounter(fake))
             fn(*fake)
     if peak_only:
         return {"peak": float(pc.peak)}

@@ -18,11 +18,19 @@ The loss: ``cross_entropy`` over f32 logits and ``chunked_cross_entropy``,
 which never holds the (B, S, V) f32 logits: each S-chunk's logits are
 recomputed in the backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` with ``nothing_saveable``).  ``remat`` is the same
-per-layer recompute for the models' training forward.  Under a mesh
-with ``REPRO_SHARDED_CE`` (or a vocab-sharded unembed,
-``REPRO_LOSS_UNEMBED_TP``) each chunk runs vocab-parallel over
-``model``; ``REPRO_FORCE_FULL_ATTENTION`` sends ``attend`` down the full
-path (the reference's costing hook).
+per-layer recompute for the models' training forward.
+
+Under a mesh whose ``model`` axis divides the vocabulary (``vocab_mesh``)
+the embedding, the logits and the loss run vocab-parallel on each rank's
+rows of ``embed`` and columns of ``unembed``: a masked lookup summed over
+``model``, a logits shard gathered over it, and each CE chunk's max, sum
+of exponentials and true logit combined over it.  That is what the
+reference's ``REPRO_LOSS_UNEMBED_TP`` and ``REPRO_SHARDED_CE`` ask of
+its partitioner; the port does it always and reads neither flag.  A
+decode over a cache sharded by sequence takes ``attend_decode_part``
+(or the kernel's partial mode) on each rank and ``merge_parts`` over
+``model``.  ``REPRO_FORCE_FULL_ATTENTION`` sends ``attend`` down the
+full path (the reference's costing hook).
 """
 from __future__ import annotations
 
@@ -34,8 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mesh import axis_size, coordinate, group
-from repro_torch.models.params import (gather_model, model_slice,
-                                       reduce_model, to_model)
+from repro_torch.models.params import gather_model, reduce_model, to_model
 
 NEG = -1e30
 
@@ -159,12 +166,70 @@ def attend_decode(q, k_cache, v_cache, pos, *, window=0, softcap=0.0):
     return out.reshape(B, H, hd)
 
 
+def attend_decode_part(q, k_cache, v_cache, pos, start: int, *, window=0,
+                       softcap=0.0):
+    """``attend_decode`` over one sequence shard of the cache, whose
+    entries hold positions ``start + [0, S)``: (out (B, H, hd) f32, the
+    softmax over this shard's valid keys alone; lse (B, H) f32, their
+    log-sum-exp, -inf where the shard has none, whose out is 0)."""
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, K, H // K, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * (
+        hd ** -0.5)
+    s = _softcap(s, softcap)
+    kpos = start + torch.arange(S, device=q.device)
+    mask = (kpos[None] <= pos[:, None]) & _window_mask(pos[:, None],
+                                                       kpos[None], window)
+    s = torch.where(mask[:, None, None], s, NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask[:, None, None], torch.exp(s - m), 0.0)
+    l = p.sum(-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
+    out = out.float() / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l), -torch.inf)
+    return out.reshape(B, H, hd), lse.reshape(B, H)
+
+
+def merge_parts(out, lse, mesh=None):
+    """The ranks' softmax parts over disjoint key sets merged over
+    ``model``: out (B, H, hd) f32 each normalised over its own keys, lse
+    (B, H) their log-sum-exp (-inf: no key, weight 0).  One all-reduce of
+    the max, one of the weighted outputs and the weights.  Without a
+    mesh the parts are stacked on a leading axis and merged here."""
+    if mesh is None:
+        m = lse.amax(0)
+    else:
+        m = lse.clone()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group(mesh, "model"))
+    w = torch.where(lse > -torch.inf, torch.exp(lse - m), 0.0)
+    both = torch.cat([out * w[..., None], w[..., None]], dim=-1)
+    if mesh is None:
+        both = both.sum(0)
+    else:
+        dist.all_reduce(both, group=group(mesh, "model"))
+    return both[..., :-1] / both[..., -1:]
+
+
 def scatter_kv(cache, new, pos):
     """Write one token into the cache, in place (the reference returns an
     updated copy: JAX arrays are immutable).  cache: (B, S, K, hd),
     new: (B, K, hd), pos: (B,)."""
     B = cache.shape[0]
     cache[torch.arange(B, device=cache.device), pos] = new.to(cache.dtype)
+    return cache
+
+
+def scatter_kv_owned(cache, new, idx):
+    """``scatter_kv`` into a sequence shard of the cache: row b written at
+    ``idx[b]`` (its position less the shard's first) only where that
+    falls inside the shard, so only the owner of a position writes it."""
+    B, S = cache.shape[:2]
+    own = (idx >= 0) & (idx < S)
+    i = idx.clamp(0, S - 1)
+    rows = torch.arange(B, device=cache.device)
+    cache[rows, i] = torch.where(own[:, None, None], new.to(cache.dtype),
+                                 cache[rows, i])
     return cache
 
 
@@ -184,22 +249,45 @@ def gelu_mlp(x, w1, w2):
 # ------------------------------------------------------ embedding, logits
 
 
-def embed(params, tokens, dt):
+def vocab_mesh(cfg, mesh):
+    """``mesh`` when its ``model`` axis splits the vocabulary (``embed``'s
+    rows and ``unembed``'s columns are then each rank's shard), else
+    None."""
+    tp = axis_size(mesh, "model")
+    return mesh if tp > 1 and cfg.vocab_size % tp == 0 else None
+
+
+def embed(params, tokens, dt, vmesh=None):
     """Token embeddings in ``dt``.  Serving gathers then casts: the same
     numbers as the reference's cast then gather, without a copy of the
     whole table.  When the table takes a gradient the reference's order
     is kept, because it decides the backward: the scatter-add of repeated
     tokens' gradients then runs in ``dt`` (bf16), as the reference's does,
-    before the cast back to the f32 master."""
+    before the cast back to the f32 master.  With ``vmesh`` the table is
+    this rank's rows: a token outside them looks up 0, and the rows are
+    summed over ``model`` (one of them is not 0: exact)."""
     table = params["embed"]
+    if vmesh is not None:
+        lo = coordinate(vmesh, "model") * table.shape[0]
+        tokens = tokens - lo
+        inside = (tokens >= 0) & (tokens < table.shape[0])
+        tokens = tokens.clamp(0, table.shape[0] - 1)
     if table.requires_grad and torch.is_grad_enabled():
-        return table.to(dt)[tokens]
-    return table[tokens].to(dt)
+        x = table.to(dt)[tokens]
+    else:
+        x = table[tokens].to(dt)
+    if vmesh is None:
+        return x
+    return reduce_model(torch.where(inside[..., None], x, 0.0), vmesh)
 
 
-def unembed(params, x):
-    """Logits in f32 from the final hidden states ``x``."""
-    return (x @ params["unembed"].to(x.dtype)).float()
+def unembed(params, x, vmesh=None):
+    """Logits in f32 from the final hidden states ``x``; with ``vmesh``
+    from this rank's vocabulary columns, gathered over ``model``."""
+    if vmesh is None:
+        return (x @ params["unembed"].to(x.dtype)).float()
+    logits = (to_model(x, vmesh) @ params["unembed"].to(x.dtype)).float()
+    return gather_model(logits, -1, vmesh)
 
 
 def softcap_logits(logits, cap: float):
@@ -247,17 +335,6 @@ def _ce_chunk(xc, unembed, lc, softcap, ignore_id):
     return (nll * valid).sum(), valid.sum()
 
 
-def _vocab_shard(mesh, V: int) -> bool:
-    """``REPRO_SHARDED_CE``: run each CE chunk with its logits
-    vocab(TP)-sharded, the lse and true-logit reductions crossing the
-    ``model`` ranks as (B, chunk) values (the reference pins the chunk's
-    logits to that sharding)."""
-    if mesh is None or not os.environ.get("REPRO_SHARDED_CE"):
-        return False
-    tp = axis_size(mesh, "model")
-    return tp > 1 and V % tp == 0
-
-
 def _ce_chunk_tp(xc, u_loc, lc, softcap, ignore_id, mesh):
     """``_ce_chunk`` over this rank's vocab slice ``u_loc`` (d, V/tp) of
     the unembed: the max, the sum of exponentials and the true logit are
@@ -279,24 +356,21 @@ def _ce_chunk_tp(xc, u_loc, lc, softcap, ignore_id, mesh):
 
 
 def chunked_cross_entropy(x, unembed, labels, *, softcap=0.0,
-                          ignore_id: int = -1, chunk: int = 512, mesh=None,
-                          unembed_sharded: bool = False):
+                          ignore_id: int = -1, chunk: int = 512, mesh=None):
     """CE without the full (B, S, V) f32 logits: a loop over S-chunks,
     each chunk's logits recomputed in the backward.  x: (B, S, d) final
     normed hidden; unembed: (d, V), cast to x's dtype inside each chunk
     (so its bf16 gradients meet in f32, as the reference's scan
     accumulates them).  Sequences of at most one chunk, or not a
-    multiple of it, take the unchunked path, as the reference's do."""
+    multiple of it, take the unchunked path, as the reference's do.
+    With ``mesh`` (a ``vocab_mesh``) ``unembed`` is this rank's (d, V/tp)
+    columns and every chunk (the unchunked sequence too) runs
+    vocab-parallel."""
     B, S, d = x.shape
     chunked = not (S % chunk != 0 or S <= chunk)
-    if unembed_sharded and not chunked:
-        unembed = gather_model(unembed, 1, mesh)
-    tp_ce = chunked and (unembed_sharded or _vocab_shard(
-        mesh, unembed.shape[1]))
-    if tp_ce and not unembed_sharded:
-        n = unembed.shape[1] // axis_size(mesh, "model")
-        unembed = model_slice(unembed, 1, coordinate(mesh, "model") * n, n,
-                              mesh)
+    if not chunked and mesh is not None:
+        nll, nv = _ce_chunk_tp(x, unembed, labels, softcap, ignore_id, mesh)
+        return nll / torch.clamp(nv, min=1.0)
     if not chunked:
         logits = x @ unembed.to(x.dtype)
         return cross_entropy(softcap_logits(logits.float(), softcap),
@@ -305,7 +379,7 @@ def chunked_cross_entropy(x, unembed, labels, *, softcap=0.0,
     n_valid = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(S // chunk):
         cs = slice(c * chunk, (c + 1) * chunk)
-        if tp_ce:
+        if mesh is not None:
             nll, nv = remat(True, _ce_chunk_tp, x[:, cs], unembed,
                             labels[:, cs], softcap, ignore_id, mesh)
         else:

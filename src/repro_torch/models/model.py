@@ -7,10 +7,10 @@ reference's ``ShapeDtypeStruct``s), the logical specs of the inputs
 and caches (``input_logical_specs``, ``cache_logical_spec``),
 ``serve_param_defs`` and ``model_flops``.  As in the reference, an
 ``encdec`` batch must carry ``"frames"`` (a ``KeyError`` otherwise) and a
-``vlm`` batch may carry ``"patches"``.  ``mesh`` reaches the transformer
-families (dense, moe, vlm: head-sharded attention and expert-parallel
-MoE over ``model``); the others run their local batch shard with every
-weight gathered.
+``vlm`` batch may carry ``"patches"``.  ``mesh`` reaches every family:
+each splits its work over ``model`` as its weights' placements do, and
+takes its cache as placed (``whole_leaves`` names the placed leaves whose
+work does not split and that a meshed step gathers whole).
 
 ``stored_dtype`` says how a serving copy keeps each parameter: the
 matrices that every product casts to the compute dtype
@@ -68,9 +68,14 @@ def serve_param_defs(cfg: ModelConfig):
     return conv(param_defs(cfg))
 
 
+def whole_leaves(cfg, mesh) -> frozenset:
+    # mamba2 splits every leaf placed over model (``mamba2.ssm_tp``)
+    fn = getattr(family_module(cfg), "whole_leaves", None)
+    return fn(cfg, mesh) if fn else frozenset()
+
+
 def _inputs(cfg, batch: dict, mesh) -> dict:
-    kw = {"mesh": mesh} if mesh is not None and family_module(cfg) is tfm \
-        else {}
+    kw = {"mesh": mesh} if mesh is not None else {}
     if cfg.family == "encdec":
         kw["frames"] = batch["frames"]
     if cfg.family == "vlm":
@@ -94,10 +99,15 @@ def prefill(cfg, params, batch: dict, cache_len: int, *, mesh=None):
                                       cache_len, **_inputs(cfg, batch, mesh))
 
 
-def decode_step(cfg, params, cache, tokens, pos, *, mesh=None):
-    """-> (logits (B, V) f32, the cache, updated in place)."""
-    kw = {"mesh": mesh} if mesh is not None and family_module(cfg) is tfm \
-        else {}
+def decode_step(cfg, params, cache, tokens, pos, *, mesh=None, kv: str = ""):
+    """-> (logits (B, V) f32, the cache, updated in place).  Under a mesh
+    the cache is this rank's part, its kv cache placed as ``kv`` says
+    (``transformer.kv_layout``)."""
+    kw = {}
+    if mesh is not None:
+        kw["mesh"] = mesh
+        if cfg.family != "ssm":
+            kw["kv"] = kv
     return family_module(cfg).decode_step(cfg, params, cache, tokens, pos,
                                           **kw)
 

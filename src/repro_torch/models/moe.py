@@ -169,7 +169,9 @@ def _moe_shardmap(cfg, p, x, mesh):
     buf = buf.index_copy(0, slot, to_model(xf, mesh)[stk]
                          * mine[:, None].to(dt))
     wg, wu, wd = (p[n].to(dt) for n in ("we_g", "we_u", "we_d"))
-    if _shard_f(cfg, mesh):     # FSDP: gather the ff shards (compute dtype)
+    if _shard_f(cfg, mesh) and wg.shape[2] < cfg.expert_d_ff:
+        # FSDP: gather the ff shards (compute dtype); serving placements
+        # hold the experts whole over data
         wg, wu = gather_data(wg, 2, mesh), gather_data(wu, 2, mesh)
         wd = gather_data(wd, 1, mesh)
     out = _expert_mm(buf[:-1].view(E_loc, C, d), wg, wu, wd, dt)

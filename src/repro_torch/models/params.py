@@ -13,10 +13,12 @@ no ranks), as the reference's ``resolve_spec`` needs only those.
 
 Under a mesh the port's steps run SPMD on local tensors (the
 reference's ``shard_map`` regions): activations are split over the
-batch axes and replicated over ``model``; ``shard_heads`` keeps this
-rank's heads (``model`` axis) and the model-axis collectives below carry
-the matching backward.  ``seq_shard`` and ``shard_heads`` are the
-identity without a mesh, as the reference's are.
+batch axes and replicated over ``model``; each weight keeps its
+``model`` shard and the work it feeds splits over ``model`` (Megatron's
+column- and row-parallel products), joined by the model-axis
+collectives below, which carry the matching backward.  ``seq_shard``
+and ``shard_heads`` are the identity without a mesh, as the reference's
+are.
 
 Initial values are drawn from an explicit ``torch.Generator`` on the
 target device with the reference's std (``scale / sqrt(fan_in)``).  The
@@ -249,17 +251,18 @@ def gather_local(t, keep: tuple = ()) -> torch.Tensor:
     """The local tensor of DTensor ``t`` gathered over every mesh axis
     but those in ``keep`` (``lax.all_gather`` of a ``shard_map`` input);
     its local tensor itself (no copy) when nothing needs gathering.  A
-    plain tensor is returned as it is."""
-    from torch.distributed.tensor import DTensor, Replicate
+    plain tensor is returned as it is.  The list form of all-gather
+    (``_all_gather``), minor axes first, so that gloo gathers CUDA
+    tensors too (its functional all-gather, which DTensor's
+    ``redistribute`` calls, does not)."""
+    from torch.distributed.tensor import DTensor
     if not isinstance(t, DTensor):
         return t
-    names = axis_names(t.device_mesh)
-    want = [p if (a in keep or p.is_replicate()
-                  or axis_size(t.device_mesh, a) == 1) else Replicate()
-            for a, p in zip(names, t.placements)]
-    if list(want) == list(t.placements):
-        return t.to_local()
-    return t.redistribute(t.device_mesh, want).to_local()
+    mesh, out = t.device_mesh, t.to_local()
+    for a, p in reversed(list(zip(axis_names(mesh), t.placements))):
+        if a not in keep and p.is_shard() and axis_size(mesh, a) > 1:
+            out = _all_gather(out, p.dim, group(mesh, a))
+    return out
 
 
 def reduce_to(g: torch.Tensor, like, keep: tuple = (),
@@ -299,7 +302,11 @@ def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
 # way out of the backward (``to_model``); partial results leaving the
 # region are summed in the forward (``reduce_model``); heads computed
 # apart are concatenated (``gather_model``), whose backward keeps this
-# rank's slice (the gradient after it is the same on every rank).
+# rank's slice (the gradient after it is the same on every rank).  A sum
+# that feeds each rank's own work again (the gated norm's sum of squares
+# over d_in) is summed both ways (``sum_model``); shards gathered for
+# work that differs by rank (a weight's column blocks) sum their
+# gradients back into the shards (``gather_sum``, a reduce-scatter).
 
 
 class _ToModel(torch.autograd.Function):
@@ -348,13 +355,15 @@ def _all_gather(x, dim: int, grp):
     return torch.cat(parts, dim=dim)
 
 
-class _GatherData(torch.autograd.Function):
-    """All-gather over an axis whose ranks hold different batch shards:
-    the backward sums the gradients over the axis and keeps this rank's
+class _GatherSum(torch.autograd.Function):
+    """All-gather whose ranks use the result differently (different batch
+    shards over ``data``, different column blocks over ``model``): the
+    backward sums the gradients over the axis and keeps this rank's
     slice (a reduce-scatter, ``lax.all_gather``'s transpose)."""
 
     @staticmethod
     def forward(ctx, x, dim, grp):
+        dim = dim % x.ndim
         ctx.dim, ctx.n, ctx.grp = dim, dist.get_world_size(grp), grp
         return _all_gather(x, dim, grp)
 
@@ -371,7 +380,7 @@ def gather_data(x, dim: int, mesh):
     reference's FSDP gather inside ``shard_map``)."""
     if axis_size(mesh, "data") <= 1:
         return x
-    return _GatherData.apply(x, dim, group(mesh, "data"))
+    return _GatherSum.apply(x, dim, group(mesh, "data"))
 
 
 def _model_group(mesh):
@@ -388,15 +397,42 @@ def reduce_model(x, mesh):
     return x if grp is None else _ReduceModel.apply(x, grp)
 
 
+def sum_model(x, mesh):
+    """``x`` summed over ``model``, its gradient summed too: a sum whose
+    result each rank then uses for its own shard of the work."""
+    return to_model(reduce_model(x, mesh), mesh)
+
+
 def gather_model(x, dim: int, mesh):
     grp = _model_group(mesh)
     return x if grp is None else _GatherModel.apply(x, dim, grp)
+
+
+def gather_sum(x, dim: int, mesh):
+    """``x``'s blocks over ``model`` concatenated along ``dim``, for work
+    that differs by rank (its backward is a reduce-scatter)."""
+    grp = _model_group(mesh)
+    return x if grp is None else _GatherSum.apply(x, dim, grp)
 
 
 def model_slice(x, dim: int, start: int, size: int, mesh):
     """``x[..., start:start + size, ...]`` along ``dim`` of a tensor
     replicated over ``model``, for this rank's share of the work."""
     return to_model(x, mesh).narrow(dim, start, size)
+
+
+def col_blocks(h, w, starts, n: int, mesh):
+    """Columns ``[s, s + n)`` of ``h @ W`` for each ``s`` in ``starts``,
+    side by side, where this rank holds ``w``, a block of W's columns
+    over ``model`` (``h`` already ``to_model``-ed).  The smaller of W and
+    the product is gathered (backward: reduce-scatter): a decode step
+    gathers its few rows of the product, a sequence gathers W and
+    multiplies only the blocks it keeps."""
+    if h.numel() // h.shape[-1] < w.shape[0]:
+        y = gather_sum(h @ w, -1, mesh)
+        return torch.cat([y.narrow(-1, s, n) for s in starts], dim=-1)
+    w = gather_sum(w, -1, mesh)
+    return h @ torch.cat([w.narrow(-1, s, n) for s in starts], dim=-1)
 
 
 def seq_shard(x, mesh=None):
@@ -410,13 +446,10 @@ def seq_shard(x, mesh=None):
 
 
 def shard_heads(t, mesh=None):
-    """(B, S, H, hd) attention tensors: this rank's heads over ``model``
-    when H divides (the reference's constraint, whose redistribute of a
-    replicated tensor is a slice; its backward sums over ``model``),
-    else as they are.  The identity without a mesh and on a tensor that
-    is not 4-d."""
-    if mesh is None or t.ndim != 4:
-        return t
+    """(B, S, H, hd) attention tensors replicated over ``model``: this
+    rank's heads when H divides (the reference's constraint, whose
+    redistribute of a replicated tensor is a slice; its backward sums
+    over ``model``), else as they are.  The identity without a mesh."""
     tp = axis_size(mesh, "model")
     if tp <= 1 or t.shape[2] % tp:
         return t

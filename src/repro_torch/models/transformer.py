@@ -19,6 +19,17 @@ goes through the hand-written kernel ``kernels/decode_attention``; the
 others (gemma2's) through the plain ``layers.attend_decode``, as in the
 reference.
 
+Under a mesh (``attn_tp``) q/k/v are column-parallel over ``model``,
+computed for this rank's heads only, and ``wo`` row-parallel with one
+all-reduce after it; when the kv heads are fewer than the ranks, the
+ranks that share one gather its columns of ``wk``/``wv``.  The decode
+attends the cache where it lies (``kv_layout``): its own kv heads, or
+its sequence shard for every head (the new token written by the shard
+that owns its position, the shards' softmax parts merged by their
+log-sum-exp), or, where neither divides, the whole cache.  Heads that do
+not divide the ranks (llama4's 40 on 16) keep the reference's padded
+``_attend_tp`` on gathered weights.
+
 ``moe`` swaps each layer's SwiGLU for ``models/moe.py``'s expert FFN (plus
 llama4's always-on shared expert) and ``forward`` returns the mean of the
 layers' load-balance losses; ``vlm`` prepends ``patches @ patch_proj`` to
@@ -35,9 +46,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.core.mesh import axis_size, coordinate
 from repro_torch.models.params import (ParamDef, compute_dtype, gather_model,
-                                       layer, model_slice, reduce_model,
-                                       seq_shard, shard_heads, to_model,
-                                       zeros_of)
+                                       gather_sum, layer, model_slice,
+                                       reduce_model, seq_shard, shard_heads,
+                                       to_model, zeros_of)
 
 # ------------------------------------------------------------------ defs
 
@@ -100,20 +111,172 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 # ------------------------------------------------------------------ blocks
 
 
-def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
-                pos=None, mesh=None):
-    """x: (B, S, d) for train/prefill; (B, 1, d) for decode."""
-    dt = x.dtype
-    hd = cfg.the_head_dim()
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+
+
+def attn_tp(cfg: ModelConfig, mesh) -> bool:
+    """Whether attention runs Megatron-style over ``model``: the heads
+    divide the ranks and each rank's query heads use whole kv heads
+    (K % tp == 0) or share one (tp % K == 0)."""
+    tp = axis_size(mesh, "model")
     H, K = cfg.n_heads, cfg.n_kv_heads
+    return tp > 1 and H > 0 and H % tp == 0 and (K % tp == 0 or tp % K == 0)
+
+
+def kv_layout(cfg: ModelConfig, mesh, cache_len: int) -> str:
+    """Where a kv cache of ``cache_len`` positions lies over ``model`` (the
+    placement ``cache_logical_spec`` resolves to): "heads", "seq", or ""
+    (whole on every rank)."""
+    tp = axis_size(mesh, "model")
+    if tp <= 1 or not cfg.n_kv_heads:
+        return ""
+    if cfg.n_kv_heads % tp == 0:
+        return "heads"
+    return "seq" if cache_len % tp == 0 else ""
+
+
+def _shared_head(cfg, mesh) -> int:
+    """The kv head this rank's query heads use when the kv heads are fewer
+    than the ranks (-1 otherwise)."""
+    tp, K = axis_size(mesh, "model"), cfg.n_kv_heads
+    if not attn_tp(cfg, mesh) or K >= tp:
+        return -1
+    return coordinate(mesh, "model") // (tp // K)
+
+
+def kv_heads(cfg, h, w, mesh):
+    """(B, S, n, hd): this rank's kv heads of ``h @ w`` under ``attn_tp``
+    (its K/tp, or the one it shares: that head's columns of ``w``,
+    gathered over ``model`` where ``w`` is a column shard, so no rank
+    computes another head), else all K."""
+    B, S, _ = h.shape
+    hd = cfg.the_head_dim()
+    kh = _shared_head(cfg, mesh)
+    if kh >= 0:
+        w = (gather_sum(w, -1, mesh) if w.shape[-1] < cfg.n_kv_heads * hd
+             else to_model(w, mesh)).narrow(-1, kh * hd, hd)
+    return (h @ w).reshape(B, S, -1, hd)
+
+
+def all_kv_heads(cfg, k, mesh):
+    """Every kv head from this rank's (``kv_heads``'s) over ``model``."""
+    if not attn_tp(cfg, mesh):
+        return k
+    k = gather_model(k, 2, mesh)
+    tp = axis_size(mesh, "model")
+    return k if cfg.n_kv_heads >= tp else k[:, :, ::tp // cfg.n_kv_heads]
+
+
+def my_kv_heads(cfg, k, mesh, dim: int = 2):
+    """This rank's kv heads of a tensor holding all K (along ``dim``)."""
+    if not attn_tp(cfg, mesh):
+        return k
+    kh = _shared_head(cfg, mesh)
+    if kh >= 0:
+        return k.narrow(dim, kh, 1)
+    n = cfg.n_kv_heads // axis_size(mesh, "model")
+    return k.narrow(dim, coordinate(mesh, "model") * n, n)
+
+
+def _cols(h, w, n_cols: int, mesh):
+    """``h @ w`` for all ``n_cols`` columns: gathered over ``model`` from
+    the ranks' column shards where ``w`` is one."""
+    y = h @ w
+    return y if w.shape[-1] == n_cols else gather_model(y, -1, mesh)
+
+
+def qkv(cfg, p, h, mesh, *, all_kv: bool = False):
+    """(q of this rank's heads, k and v of its kv heads), (B, S, n, hd)
+    each, from the normed ``h`` (``to_model``-ed under ``attn_tp``);
+    with ``all_kv`` k and v of every kv head (a decode step whose cache
+    holds them all: the token's columns gathered, not the weights)."""
+    B, S, _ = h.shape
+    dt, hd = h.dtype, cfg.the_head_dim()
+    q = (h @ p["wq"].to(dt)).reshape(B, S, -1, hd)
+    if all_kv:
+        n = cfg.n_kv_heads * hd
+        k, v = (_cols(h, p[w].to(dt), n, mesh).reshape(B, S, -1, hd)
+                for w in ("wk", "wv"))
+    else:
+        k, v = (kv_heads(cfg, h, p[w].to(dt), mesh) for w in ("wk", "wv"))
+    return q, k, v
+
+
+def store_prompt(cfg, dst, k, mesh, kv: str):
+    """A prefill's k (or v) of this rank's kv heads (B, S, n, hd) into its
+    part of one layer's cache ``dst``: its heads, its sequence shard of
+    every head, or every head whole, as ``kv`` says."""
+    S = k.shape[1]
+    if kv == "heads":
+        dst[:, :S] = k
+        return
+    k = all_kv_heads(cfg, k, mesh)
+    lo = coordinate(mesh, "model") * dst.shape[1] if kv == "seq" else 0
+    n = max(0, min(S - lo, dst.shape[1]))
+    dst[:, :n] = k[:, lo:lo + n]
+
+
+def attend_cache(cfg, q, k, v, cache, pos, mesh, kv: str, window: int = 0):
+    """One decode token's attention over the cache where it lies.  q:
+    this rank's heads (all of them under ``attn_tp`` unless ``kv`` is
+    "heads"), k/v: the token's, of the kv heads the cache holds (B, 1,
+    n, hd); the cache (B, S_l, n, hd) is written in place.  -> (B, 1, h,
+    hd) for q's heads."""
+    kc, vc = cache
+    spread = attn_tp(cfg, mesh) and kv != "heads"
+    if spread:          # the cache holds every head: attend them all
+        q = gather_model(q, 2, mesh)
+    fused = window == 0 and not cfg.attn_softcap
+    if kv == "seq":
+        S_l = kc.shape[1]
+        start = coordinate(mesh, "model") * S_l
+        for c, new in ((kc, k), (vc, v)):
+            L.scatter_kv_owned(c, new[:, 0], pos - start)
+        if fused:
+            # the kernel's count: this shard's entries at positions <= pos
+            o, lse = DA.decode_attention(
+                q[:, 0], kc, vc, (pos + 1 - start).clamp(0, S_l),
+                partial=True)
+        else:
+            o, lse = L.attend_decode_part(q[:, 0], kc, vc, pos, start,
+                                          window=window,
+                                          softcap=cfg.attn_softcap)
+        out = L.merge_parts(o, lse, mesh).to(q.dtype)
+    else:
+        L.scatter_kv(kc, k[:, 0], pos)
+        L.scatter_kv(vc, v[:, 0], pos)
+        if fused:
+            # attend_decode attends to kpos <= pos (layers.py:175 of the
+            # reference), the kernel to kpos < its count (decode_attention
+            # kernel.py:56): the count of valid entries is pos + 1
+            out = DA.decode_attention(q[:, 0], kc, vc, pos + 1)
+        else:
+            out = L.attend_decode(q[:, 0], kc, vc, pos, window=window,
+                                  softcap=cfg.attn_softcap)
+    out = out[:, None]
+    if spread:
+        n = cfg.n_heads // axis_size(mesh, "model")
+        out = out[:, :, coordinate(mesh, "model") * n:][:, :, :n]
+    return out
+
+
+def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
+                pos=None, mesh=None, kv: str = ""):
+    """x: (B, S, d) for train/prefill; (B, 1, d) for decode.  Prefill
+    returns this rank's kv heads (``store_prompt`` places them)."""
+    dt = x.dtype
+    tp = attn_tp(cfg, mesh)
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     B, S, _ = h.shape
-    q = (h @ p["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (h @ p["wk"].to(dt)).reshape(B, S, K, hd)
-    v = (h @ p["wv"].to(dt)).reshape(B, S, K, hd)
+    if tp:
+        h = to_model(h, mesh)
+    q, k, v = qkv(cfg, p, h, mesh, all_kv=mode == "decode" and tp
+                  and kv != "heads")
     if cfg.qk_norm:
-        q = L.l2_head_norm(q, p["q_norm"], cfg.norm_eps)
-        k = L.l2_head_norm(k, p["k_norm"], cfg.norm_eps)
+        # the norms' gradients from this rank's heads, summed over model
+        rep = (lambda t: to_model(t, mesh)) if tp else (lambda t: t)
+        q = L.l2_head_norm(q, rep(p["q_norm"]), cfg.norm_eps)
+        k = L.l2_head_norm(k, rep(p["k_norm"]), cfg.norm_eps)
     if mode == "decode":
         positions = pos[:, None]  # (B, 1)
     else:
@@ -122,49 +285,42 @@ def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if mode == "decode":
-        kc, vc = cache  # (B, Smax, K, hd), written in place
-        L.scatter_kv(kc, k[:, 0], pos)
-        L.scatter_kv(vc, v[:, 0], pos)
-        if window == 0 and not cfg.attn_softcap:
-            # attend_decode attends to kpos <= pos (layers.py:175 of the
-            # reference), the kernel to kpos < its count (decode_attention
-            # kernel.py:56): the count of valid entries is pos + 1
-            out = DA.decode_attention(q[:, 0], kc, vc, pos + 1)[:, None]
-        else:
-            out = L.attend_decode(q[:, 0], kc, vc, pos, window=window,
-                                  softcap=cfg.attn_softcap)[:, None]
-        new_cache = (kc, vc)
+        out = attend_cache(cfg, q, k, v, cache, pos, mesh, kv, window)
+        new_cache = cache
     else:
-        out = _attend_tp(cfg, q, k, v, window, mesh)
+        out = (L.attend(q, k, v, causal=True, window=window,
+                        softcap=cfg.attn_softcap) if tp
+               else _attend_tp(cfg, q, k, v, window, mesh))
         new_cache = (k, v) if mode == "prefill" else None
-    y = out.reshape(B, S, H * hd) @ p["wo"].to(dt)
+    y = out.reshape(B, S, -1) @ p["wo"].to(dt)
+    if tp:
+        y = reduce_model(y, mesh)
     return x + y, new_cache
 
 
 def _attend_tp(cfg: ModelConfig, q, k, v, window: int, mesh):
-    """Attention of (B, S, H, hd) q over (B, S, K, hd) k, v.  Under a mesh
-    each ``model`` rank attends with its share of the heads and the
-    outputs are gathered (the reference's ``shard_heads`` constraints);
-    when H doesn't divide the model axis but exceeds it (llama4: 40
-    heads on tp=16), the GQA group dim is padded so K*G' divides tp, the
-    padded heads are shared out, and the padding is cut off after."""
+    """Attention of (B, S, H, hd) q over (B, S, K, hd) k, v, all replicated
+    over ``model`` (the heads do not split: ``attn_tp`` is false).  When
+    H doesn't divide the model axis but exceeds it (llama4: 40 heads on
+    tp=16), the GQA group dim is padded so K*G' divides tp, each rank
+    attends its share of the padded heads, the outputs are gathered and
+    the padding cut off (the reference's ``shard_heads`` constraints);
+    otherwise every rank attends all heads."""
     tp = axis_size(mesh, "model")
     H, K = q.shape[2], k.shape[2]
 
     def attend(q, k, v):
         return L.attend(q, k, v, causal=True, window=window,
                         softcap=cfg.attn_softcap)
-    if tp <= 1 or (H % tp and H <= tp):
+    if tp <= 1 or H % tp == 0 or H < tp:
         return attend(q, k, v)
     B, S, _, hd = q.shape
     G = H // K
     Gp = G
     while (K * Gp) % tp:
         Gp += 1
-    if Gp != G:
-        qg = q.reshape(B, S, K, G, hd)
-        q = torch.nn.functional.pad(qg, (0, 0, 0, Gp - G)).reshape(
-            B, S, K * Gp, hd)
+    q = torch.nn.functional.pad(q.reshape(B, S, K, G, hd),
+                                (0, 0, 0, Gp - G)).reshape(B, S, K * Gp, hd)
     hl, r = K * Gp // tp, coordinate(mesh, "model")   # this rank's heads
     if hl % Gp and Gp % hl:
         # a rank's heads would span a ragged set of kv heads: unsharded
@@ -174,7 +330,7 @@ def _attend_tp(cfg: ModelConfig, q, k, v, window: int, mesh):
         out = gather_model(attend(shard_heads(q, mesh),
                                   model_slice(k, 2, kv0, kl, mesh),
                                   model_slice(v, 2, kv0, kl, mesh)), 2, mesh)
-    return out if Gp == G else _unpad(out, K, Gp, G)
+    return _unpad(out, K, Gp, G)
 
 
 def _unpad(out, K: int, Gp: int, G: int):
@@ -182,16 +338,22 @@ def _unpad(out, K: int, Gp: int, G: int):
     return out.reshape(B, S, K, Gp, hd)[:, :, :, :G].reshape(B, S, K * G, hd)
 
 
-MLP_WEIGHTS = ("wg", "wu", "wd", "se_wg", "se_wu", "se_wd")
-
-
 def mlp_tp(cfg: ModelConfig, mesh) -> bool:
-    """Whether the SwiGLU runs Megatron-parallel over ``model``: its
-    matrices keep their ``model`` shards of ``d_ff`` (column-parallel
-    gate and up, row-parallel down, one all-reduce of the output)."""
+    """Whether the MLP runs Megatron-parallel over ``model``: its matrices
+    keep their ``model`` shards of ``d_ff`` (column-parallel gate and up,
+    row-parallel down, one all-reduce of the output)."""
     tp = axis_size(mesh, "model")
-    return (cfg.family in ("dense", "moe", "vlm") and tp > 1
-            and cfg.d_ff > 0 and cfg.d_ff % tp == 0)
+    return tp > 1 and cfg.d_ff > 0 and cfg.d_ff % tp == 0
+
+
+def whole_leaves(cfg: ModelConfig, mesh) -> frozenset:
+    """The leaves placed over ``model`` whose work does not split over it
+    here: they are gathered whole before a meshed step.  The attention's
+    when its heads do not divide (``attn_tp``), and vlm's ``patch_proj``
+    (the patches' projection runs replicated: this slice does not split
+    it)."""
+    return frozenset((() if attn_tp(cfg, mesh) else ATTN_WEIGHTS)
+                     + ("patch_proj",))
 
 
 def _swiglu(cfg, h, wg, wu, wd, mesh):
@@ -216,10 +378,10 @@ def _mlp_block(cfg: ModelConfig, p, x, mesh=None):
 
 
 def block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
-          pos=None, mesh=None):
+          pos=None, mesh=None, kv: str = ""):
     """-> (x, new cache, the layer's moe aux loss (0 unless moe))."""
     x, new_cache = _attn_block(cfg, p, x, window, mode=mode, cache=cache,
-                               pos=pos, mesh=mesh)
+                               pos=pos, mesh=mesh, kv=kv)
     x, aux = _mlp_block(cfg, p, x, mesh=mesh)
     return x, new_cache, aux
 
@@ -227,17 +389,18 @@ def block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
 # ------------------------------------------------------------------ model
 
 
-def embed_tokens(cfg, params, tokens, patches=None):
+def embed_tokens(cfg, params, tokens, patches=None, mesh=None):
     dt = compute_dtype(cfg)
-    x = L.embed(params, tokens, dt)
+    x = L.embed(params, tokens, dt, L.vocab_mesh(cfg, mesh))
     if cfg.family == "vlm" and patches is not None:
         pe = patches.to(dt) @ params["patch_proj"].to(dt)
         x = torch.cat([pe, x], dim=1)
     return x
 
 
-def _logits(cfg, params, x):
-    return L.softcap_logits(L.unembed(params, x), cfg.logit_softcap)
+def _logits(cfg, params, x, mesh=None):
+    return L.softcap_logits(L.unembed(params, x, L.vocab_mesh(cfg, mesh)),
+                            cfg.logit_softcap)
 
 
 def _train_block(cfg, p, x, window: int, mesh=None):
@@ -252,7 +415,7 @@ def forward(cfg: ModelConfig, params, tokens, *, patches=None, mesh=None,
     patches (vlm).  With ``return_hidden``, the final normed hidden
     (B, S_total, d) in place of the logits (the training loss takes the
     chunked CE).  ``remat`` recomputes each layer in the backward."""
-    x = seq_shard(embed_tokens(cfg, params, tokens, patches), mesh)
+    x = seq_shard(embed_tokens(cfg, params, tokens, patches, mesh), mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, w in enumerate(layer_windows(cfg)):
         x, a = L.remat(remat, _train_block, cfg, layer(params["blocks"], l),
@@ -263,39 +426,43 @@ def forward(cfg: ModelConfig, params, tokens, *, patches=None, mesh=None,
     aux = aux / max(cfg.n_layers, 1)
     if return_hidden:
         return x, aux
-    return _logits(cfg, params, x), aux
+    return _logits(cfg, params, x, mesh), aux
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache_len: int, *,
             patches=None, mesh=None):
     """Prefill: returns (last-token logits (B, 1, V) f32, KV cache (k, v),
     each (L, B, cache_len, K, hd) with zeros past the prompt, the
-    prepended patches included)."""
-    x = embed_tokens(cfg, params, tokens, patches)
-    B, S = x.shape[:2]
-    k_all, v_all = zeros_of(init_cache_abstract(cfg, B, cache_len),
+    prepended patches included; under a mesh this rank's part of it, as
+    ``kv_layout`` places it)."""
+    x = embed_tokens(cfg, params, tokens, patches, mesh)
+    B = x.shape[0]
+    kv = kv_layout(cfg, mesh, cache_len)
+    k_all, v_all = zeros_of(local_cache(cfg, B, cache_len, mesh, kv),
                             x.device)
     for l, w in enumerate(layer_windows(cfg)):
         x, (k, v), _ = block(cfg, layer(params["blocks"], l), x, int(w),
                              mode="prefill", mesh=mesh)
-        k_all[l, :, :S] = k
-        v_all[l, :, :S] = v
+        store_prompt(cfg, k_all[l], k, mesh, kv)
+        store_prompt(cfg, v_all[l], v, mesh, kv)
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x), (k_all, v_all)
+    return _logits(cfg, params, x, mesh), (k_all, v_all)
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, mesh=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, mesh=None,
+                kv: str = ""):
     """One decode step.  tokens: (B,), pos: (B,) write positions.
-    cache: (k, v) each (L, B, Smax, K, hd), updated in place.  Returns
-    (logits (B, V) f32, cache)."""
-    x = embed_tokens(cfg, params, tokens[:, None])
+    cache: (k, v) each (L, B, Smax, K, hd), updated in place (under a
+    mesh this rank's part, placed as ``kv`` says: ``kv_layout``).
+    Returns (logits (B, V) f32, cache)."""
+    x = embed_tokens(cfg, params, tokens[:, None], mesh=mesh)
     k_all, v_all = cache
     for l, w in enumerate(layer_windows(cfg)):
         x, _, _ = block(cfg, layer(params["blocks"], l), x, int(w),
                         mode="decode", cache=(k_all[l], v_all[l]), pos=pos,
-                        mesh=mesh)
+                        mesh=mesh, kv=kv)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x[:, 0]), cache
+    return _logits(cfg, params, x[:, 0], mesh), cache
 
 
 def init_cache_abstract(cfg: ModelConfig, batch: int, cache_len: int):
@@ -303,6 +470,20 @@ def init_cache_abstract(cfg: ModelConfig, batch: int, cache_len: int):
     no storage (the reference's ``ShapeDtypeStruct``s)."""
     hd = cfg.the_head_dim()
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, hd)
+    dt = compute_dtype(cfg)
+    return (torch.empty(shape, dtype=dt, device="meta"),
+            torch.empty(shape, dtype=dt, device="meta"))
+
+
+def local_cache(cfg: ModelConfig, batch: int, cache_len: int, mesh,
+                kv: str, n_layers: int = None):
+    """This rank's (k, v) cache part as meta tensors, placed as ``kv``
+    says (``init_cache_abstract``'s shapes without a mesh)."""
+    tp = axis_size(mesh, "model")
+    hd, K = cfg.the_head_dim(), cfg.n_kv_heads
+    shape = (cfg.n_layers if n_layers is None else n_layers, batch,
+             cache_len // tp if kv == "seq" else cache_len,
+             K // tp if kv == "heads" else K, hd)
     dt = compute_dtype(cfg)
     return (torch.empty(shape, dtype=dt, device="meta"),
             torch.empty(shape, dtype=dt, device="meta"))

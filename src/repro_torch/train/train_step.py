@@ -15,16 +15,17 @@ With a ``DeviceMesh`` the same step takes DTensors placed as
 ``in_shardings`` say (``NamedSharding``s of the reference's logical
 specs; ``abstract_args`` are meta tensors) and runs SPMD on local
 tensors, as the reference's ``shard_map`` regions do: each rank's batch
-shard; every weight gathered over the axes it is sharded on but those
-the model shards the work over (the experts keep ``model``, and
-``data`` when ``_moe_shardmap`` gathers their ``ff`` shards in bf16
-itself; the transformer's SwiGLU matrices keep ``model`` (Megatron's
-column- and row-parallel products); the unembed keeps ``model`` under
-``REPRO_LOSS_UNEMBED_TP``); attention heads, experts and the SwiGLU's
-``d_ff`` split over ``model``, the rest of the work replicated over it.
-A gradient is summed over the batch axes and cut back to its
-parameter's placement (a reduce-scatter over ``data``), and AdamW runs
-on the shards with the global norm summed over the ranks.  Micro-steps
+shard; every weight keeps its ``model`` shard and is gathered over
+``data`` (FSDP) only, and the work it feeds splits over ``model`` as its
+placement does (``_keeps``): attention heads, the MLP's ``d_ff``, the
+vocabulary, mamba2's heads, the experts (which keep ``data`` too when
+``_moe_shardmap`` gathers their ``ff`` shards in bf16 itself).  The
+leaves whose work this slice does not split (``M.whole_leaves``) are
+gathered whole and their work runs replicated over ``model``.  The
+serving steps take the cache where it lies (no gather of it).  A
+gradient is summed over the batch axes and cut back to its parameter's
+placement (a reduce-scatter over ``data``), and AdamW runs on the shards
+with the global norm summed over the ranks.  Micro-steps
 keep the reference's micro-batches (global rows ``[i B/m, (i+1) B/m)``);
 each rank weighs its rows of one by that micro-batch's global count of
 valid labels, so the loss is the reference's.  On a mesh of one rank no
@@ -34,8 +35,11 @@ collective runs and the step is the unmeshed one, bit for bit.
 more dims) to the compute dtype once at the top of the step, as the
 reference does; gradients reach the masters through the cast, and a
 matrix used more than once (the unembed across CE chunks) then meets its
-gradients in the compute dtype, as there.  ``REPRO_LOSS_UNEMBED_TP``
-and ``REPRO_SHARDED_CE`` act under a mesh only (vocab-parallel CE).
+gradients in the compute dtype, as there.  The reference's
+``REPRO_LOSS_UNEMBED_TP`` and ``REPRO_SHARDED_CE`` ask its partitioner
+for the vocab-parallel loss that the port's meshed step always runs
+(``layers`` says so); neither changes a result there, and the port does
+not read them.
 """
 from __future__ import annotations
 
@@ -51,11 +55,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.params import (BATCH_AXES, NamedSharding, P,
+from repro_torch.models.params import (BATCH_AXES, NamedSharding,
                                        abstract_params, batch_sum,
                                        compute_dtype, contiguous_stride,
-                                       gather_local,
-                                       local_part, param_shardings,
+                                       gather_local, param_shardings,
                                        reduce_to, resolve_spec)
 from repro_torch.train import adamw
 
@@ -66,14 +69,6 @@ def _shard(mesh, logical, shape) -> Optional[NamedSharding]:
     if mesh is None:
         return None
     return NamedSharding(mesh, resolve_spec(logical, shape, mesh))
-
-
-def _unembed_tp(cfg, mesh) -> bool:
-    """``REPRO_LOSS_UNEMBED_TP``: the loss takes the unembed vocab(TP)-
-    sharded (one gather over the fsdp axis, then vocab-parallel chunks)."""
-    return (mesh is not None and bool(os.environ.get("REPRO_LOSS_UNEMBED_TP"))
-            and axis_size(mesh, "model") > 1
-            and cfg.vocab_size % axis_size(mesh, "model") == 0)
 
 
 AUX_WEIGHT = 0.01
@@ -88,8 +83,8 @@ def loss_fn(cfg, params, batch, mesh=None, aux_weight=AUX_WEIGHT):
         hidden = hidden[:, batch["patches"].shape[1]:]
     loss = L.chunked_cross_entropy(hidden, params["unembed"],
                                    batch["labels"],
-                                   softcap=cfg.logit_softcap, mesh=mesh,
-                                   unembed_sharded=_unembed_tp(cfg, mesh))
+                                   softcap=cfg.logit_softcap,
+                                   mesh=L.vocab_mesh(cfg, mesh))
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
@@ -249,18 +244,22 @@ def _batch_shardings(cfg, shape, mesh) -> dict:
 
 
 def _keeps(cfg, defs, mesh) -> dict:
-    """Each leaf's mesh axes that the step's work is sharded over (its
-    shards there are used as they are; the rest are gathered)."""
+    """Each leaf's mesh axes whose shards the step's work uses as they are
+    (the rest are gathered before it): ``model`` wherever the leaf's
+    placement shards over it, but on the leaves whose work this slice
+    does not split (``M.whole_leaves``: vlm's ``patch_proj``, the
+    attention's where its heads do not divide the ranks); the experts'
+    are ``expert_keep``'s."""
     ek = moe_lib.expert_keep(cfg, mesh)
-    ut = ("model",) if _unembed_tp(cfg, mesh) else ()
-    mt = ("model",) if tfm.mlp_tp(cfg, mesh) else ()
+    whole = M.whole_leaves(cfg, mesh)
 
     def keep(path, d):      # a frozenset: a leaf of the tree, not a node
         if isinstance(d, dict):
             return {k: keep(k, v) for k, v in d.items()}
-        return frozenset(ek if path in EXPERTS else
-                         ut if path == "unembed" else
-                         mt if path in tfm.MLP_WEIGHTS else ())
+        if path in EXPERTS:
+            return frozenset(ek)
+        placed = "model" in resolve_spec(d.logical, d.shape, mesh)
+        return frozenset(("model",) if placed and path not in whole else ())
     return keep(None, defs)
 
 
@@ -323,18 +322,11 @@ def _serve_setup(cfg, shape, mesh, cache_len: int):
 
 
 def _placed(local: torch.Tensor, sh: NamedSharding, shape: tuple):
-    """A batch-local tensor, replicated over ``model``, as the DTensor
-    ``sh`` places: its ``model`` slices cut out here."""
+    """This rank's part of a tensor as the DTensor ``sh`` places."""
     from torch.distributed.tensor import DTensor
-    part = local_part(local, _model_only(sh))
-    return DTensor.from_local(part.contiguous(), sh.mesh, sh.placements,
+    return DTensor.from_local(local.contiguous(), sh.mesh, sh.placements,
                               run_check=False, shape=torch.Size(shape),
                               stride=contiguous_stride(shape))
-
-
-def _model_only(sh: NamedSharding) -> NamedSharding:
-    return NamedSharding(sh.mesh, P(*(e if e == "model" else None
-                                      for e in sh.spec)))
 
 
 def make_prefill_step(cfg: ModelConfig, shape: InputShape, mesh=None):
@@ -378,17 +370,16 @@ def make_decode_step(cfg: ModelConfig, shape: InputShape, mesh=None):
             return M.decode_step(cfg, params, cache, tokens, pos)
     else:
         keeps = _keeps(cfg, defs, mesh)
+        kv = tfm.kv_layout(cfg, mesh, shape.seq_len)
         logit_sh = _shard(mesh, ("batch", None),
                           (shape.global_batch, cfg.vocab_size))
 
         def decode_step(params, cache, tokens, pos):
             work = _working(params, keeps)
-            wc = tuple(gather_local(c, BATCH_AXES) for c in cache)
-            logits, wc = M.decode_step(cfg, work, wc, tokens.to_local(),
-                                       pos.to_local(), mesh=mesh)
-            for c, w, sh in zip(cache, wc, cache_sh):
-                if "model" in sh.spec and axis_size(mesh, "model") > 1:
-                    c.to_local().copy_(local_part(w, _model_only(sh)))
+            # the cache where it lies, written in place
+            logits, _ = M.decode_step(
+                cfg, work, tuple(c.to_local() for c in cache),
+                tokens.to_local(), pos.to_local(), mesh=mesh, kv=kv)
             return (_placed(logits, logit_sh,
                             (shape.global_batch, cfg.vocab_size)), cache)
     in_shardings = (p_sh, cache_sh, tok_sh, pos_sh)

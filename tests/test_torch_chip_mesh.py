@@ -5,7 +5,9 @@ reference, (b) the meshed train step bit for bit against the unmeshed
 one, (c) the meshed serve steps' tokens, (d) ``_moe_shardmap`` over 4
 gloo ranks on two meshes, a second seed and in f32 against the plain
 version, (e) the d-HNSW step
-over 4 gloo ranks (its store cut to 8 partitions) against one rank."""
+over 4 gloo ranks (its store cut to 8 partitions) against one rank, (f)
+every family's meshed serve steps over 4 and 8 gloo ranks against the
+unmeshed path."""
 import os
 import sys
 
@@ -50,3 +52,4 @@ def test_chip_smoke_mesh_phase_on_cpu(monkeypatch, capsys, one_thread):
     assert "tokens equal to the unmeshed" in out
     assert out.count("[19d moe shardmap]") == 4
     assert out.count("[19e d-HNSW step]") == 6
+    assert out.count("[19f mesh ") == len(cs.MESH_FAMILIES)

@@ -10,6 +10,10 @@ Tolerances: f32 atol 2e-5 / rtol 1e-4 (the sums run in another order),
 bf16 atol = rtol = 0.02 (the reference's own bf16 test), both as in
 ``tests/test_kernels.py``.
 
+The partial mode (a cache sharded by sequence over ranks) is held on the
+CPU through its merge (``layers.merge_parts``) against the unsharded
+plain version, shards with no valid key included.
+
 Tests marked ``gpu`` hold the CUDA kernel against its plain version on
 the card (f32 as above; bf16 within ``BF16_STEPS`` of the largest
 output, since both round one f32 result to bf16); they decide inside
@@ -325,3 +329,82 @@ def test_decode_attention_kernel_back_to_back_on_one_stream():
     torch.cuda.synchronize()
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     assert not DA.arrivals(q.device, 64).any()
+
+
+def _shards(k, v, counts, n):
+    """The n sequence shards of k, v and each one's count of valid
+    entries (``counts`` over the whole cache)."""
+    S_l = k.shape[1] // n
+    return [(k[:, r * S_l:(r + 1) * S_l], v[:, r * S_l:(r + 1) * S_l],
+             (counts - r * S_l).clamp(0, S_l)) for r in range(n)]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_partial_mode_merges_to_the_whole(rng, n):
+    """The plain partial mode on each of n sequence shards, merged by the
+    parts' log-sum-exp, equals the unsharded plain version within 1e-6
+    in f32; rows whose valid keys all lie in the first shard leave the
+    later shards with none (l = 0: a zero row and lse -inf, weight 0)."""
+    q, k, v, p = _torch(*_inputs(rng, 4, 48, 2, 4, 32, [5, 48, 20, 1]))
+    parts = [decode_attention_ref(q, ks, vs, c, partial=True)
+             for ks, vs, c in _shards(k, v, p, n)]
+    empty = [c for _, _, c in _shards(k, v, p, n)][-1] == 0
+    assert empty.any()
+    for (o, lse), (_, _, c) in zip(parts, _shards(k, v, p, n)):
+        assert torch.equal(o[c == 0], torch.zeros_like(o[c == 0]))
+        assert torch.isneginf(lse[c == 0]).all()
+    got = L.merge_parts(torch.stack([o for o, _ in parts]),
+                        torch.stack([lse for _, lse in parts]))
+    want = decode_attention_ref(q, k, v, p)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    # the wrapper's partial mode on CPU tensors is the plain one
+    o, lse = DA.decode_attention(q, *_shards(k, v, p, n)[0], partial=True)
+    assert o.dtype == lse.dtype == torch.float32
+    assert torch.equal(o, parts[0][0]) and torch.equal(lse, parts[0][1])
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (20, 0.0), (0, 30.0),
+                                            (20, 30.0)])
+def test_attend_decode_part_merges_to_attend_decode(rng, window, softcap):
+    """``attend_decode_part`` over 4 sequence shards (positions offset by
+    each shard's start), merged, equals ``attend_decode`` over the whole
+    cache within 1e-6 in f32, with a window and a score softcap (the
+    route of gemma2's layers) and a shard past every position."""
+    q, k, v, _ = _torch(*_inputs(rng, 3, 64, 2, 2, 16))
+    pos = torch.tensor([3, 63, 40], dtype=torch.int32)
+    parts = [L.attend_decode_part(q, k[:, r * 16:(r + 1) * 16],
+                                  v[:, r * 16:(r + 1) * 16], pos, r * 16,
+                                  window=window, softcap=softcap)
+             for r in range(4)]
+    assert torch.isneginf(parts[3][1][0]).all()
+    got = L.merge_parts(torch.stack([o for o, _ in parts]),
+                        torch.stack([lse for _, lse in parts]))
+    want = L.attend_decode(q, k, v, pos, window=window, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_partial_on_card(dtype):
+    """The kernel's partial mode against the plain one at a sequence
+    shard's shape (qwen3-moe's K=4, G=8 on a shard of 8 ranks), an empty
+    shard's rows included: out within the module's tolerance (f32 rows
+    both ways, so bf16 inputs only differ in the sum's order), lse
+    within 1e-5, -inf where the shard has no key."""
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    q, k, v, p = (t.to(dev) for t in _torch(
+        *_inputs(rng, 8, 512, 4, 8, 128, [0, 512, 1, 300, 0, 64, 65, 511]),
+        dtype=getattr(torch, dtype)))
+    before, before_partial = DA.launches, DA.partial_launches
+    o, lse = DA.decode_attention(q, k, v, p, partial=True)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 1
+    assert DA.partial_launches == before_partial + 1
+    wo, wl = decode_attention_ref(q, k, v, p, partial=True)
+    np.testing.assert_allclose(o.cpu().numpy(), wo.cpu().numpy(), **F32_TOL)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(wl))
+    fin = torch.isfinite(wl)
+    np.testing.assert_allclose(lse[fin].cpu().numpy(), wl[fin].cpu().numpy(),
+                               atol=1e-5, rtol=1e-6)
+    assert torch.equal(o[p == 0], torch.zeros_like(o[p == 0]))

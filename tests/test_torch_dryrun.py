@@ -88,6 +88,52 @@ def test_smoke_dry_run_on_fake_mesh(arch, kind):
     assert 0 < cost["flops"] < whole["flops"]
 
 
+# each family's smoke config: a (2, 4) mesh's products, summed over its 8
+# devices, over the unmeshed step's (FlopCounterMode), as read on the CPU
+# when the meshed steps came to split their work over ``model``.  What is
+# left above 1: the kv head that tp / K = 2 ranks share, whose k and v
+# both compute at train and prefill; the router and B/C projections
+# (replicated, as placed); at decode the moe capacity's floor of 4 slots
+# an expert on each data shard (the reference's ``_capacity``).
+MESH_PRODUCTS = {
+    ("qwen3-8b", "train"): 1.083, ("qwen3-8b", "prefill"): 1.091,
+    ("qwen3-8b", "decode"): 1.000,
+    ("qwen3-moe-30b-a3b", "train"): 1.084,
+    ("qwen3-moe-30b-a3b", "prefill"): 1.094,
+    ("qwen3-moe-30b-a3b", "decode"): 1.322,
+    ("pixtral-12b", "train"): 1.087, ("pixtral-12b", "prefill"): 1.097,
+    ("pixtral-12b", "decode"): 1.000,
+    ("mamba2-370m", "train"): 1.130, ("mamba2-370m", "prefill"): 1.129,
+    ("mamba2-370m", "decode"): 1.185,
+    ("zamba2-2.7b", "train"): 1.119, ("zamba2-2.7b", "prefill"): 1.117,
+    ("zamba2-2.7b", "decode"): 1.110,
+    ("whisper-tiny", "train"): 1.102, ("whisper-tiny", "prefill"): 1.110,
+    ("whisper-tiny", "decode"): 1.000}
+
+
+@pytest.mark.parametrize("arch,kind", list(MESH_PRODUCTS))
+def test_meshed_step_splits_its_products(arch, kind):
+    """Every family's meshed step splits its work over ``model``: on the
+    fake (2, 4) mesh the products a device, summed over the mesh, are at
+    most 1.5x the unmeshed step's, and at most 2 % above the reading in
+    ``MESH_PRODUCTS`` (a weight gathered whole again and its product run
+    on every rank shows there first: qwen3-8b's ``wq`` alone moves its
+    prefill from 1.09 to 1.36).  A decode cell's working set is at most
+    twice its placed arguments (it attends its cache where it lies)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg, shape = smoke_config(arch), SMALL[kind]
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    one = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    cost = TD.trace_cost(cfg, shape, mesh)
+    ratio = 8 * cost["flops"] / TD.trace_cost(cfg, shape, one)["flops"]
+    print(arch, kind, f"{ratio:.3f}")
+    assert ratio <= 1.5
+    assert ratio <= 1.02 * MESH_PRODUCTS[arch, kind]
+    if kind == "decode":
+        args = TD.device_bytes(cfg, shape, mesh)["argument_size_bytes"]
+        assert args + cost["peak"] <= 2 * args
+
+
 def test_dhnsw_rows_equal_reference():
     """The twelve d-HNSW rows: per-device collective operand and wire
     bytes, the collective count and the argument bytes equal the
@@ -232,12 +278,16 @@ def test_cli_and_roofline(tmp_path):
     assert r["memory"]["argument_size_bytes"] == 3440339008
     assert r["memory"]["no_counterpart"] == ["temp_size_bytes",
                                              "generated_code_size_bytes"]
-    # the decode gathers its cache over model: the working set shows it
+    # the decode attends its cache where it lies: the working set stays
+    # within twice the arguments (it was 86.94 GB when the cache was
+    # gathered over model)
     assert r["memory"]["working_set_bytes"] == (
         r["memory"]["argument_size_bytes"]
         + r["memory"]["peak_transient_bytes"])
-    assert r["memory"]["peak_transient_bytes"] >= 16 * r["memory"][
+    assert 0 < r["memory"]["peak_transient_bytes"] < r["memory"][
         "cache_bytes"]
+    assert r["memory"]["working_set_bytes"] <= 2 * r["memory"][
+        "argument_size_bytes"]
     rows = torch_roofline.run(str(out))
     assert [x["name"] for x in rows] == [
         "roofline/qwen3-8b/decode_32k/single"]
@@ -246,32 +296,43 @@ def test_cli_and_roofline(tmp_path):
 
 def test_working_set_counts_what_the_step_gathers():
     """``PeakCounter`` sees the copies a meshed step makes on top of its
-    arguments: the decode gathers its cache over ``model`` (tp times the
-    cache shard), the train step every f32 weight the model does not
-    shard its work over (all but the SwiGLU's, whole on each rank)."""
+    arguments and not the arguments themselves: the decode takes its
+    cache where it lies (its peak below the cache gathered over the 4
+    model ranks, which it was above when it gathered it), the train step
+    gathers every f32 weight over ``data`` and keeps its ``model`` shard
+    (the working copies, whole on each rank where ``_keeps`` keeps no
+    ``model``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import tree as T
     from repro_torch.models import model as TM
+    from repro_torch.models.params import (NamedSharding, P,
+                                           param_shardings)
     from repro_torch.train import train_step as TTS
     mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
     cfg = smoke_config("qwen3-8b")
     mem = TD.device_bytes(cfg, SMALL["decode"], mesh)
-    assert TD.trace_cost(cfg, SMALL["decode"], mesh)["peak"] >= (
+    assert TD.trace_cost(cfg, SMALL["decode"], mesh)["peak"] < (
         4 * mem["cache_bytes"])
     defs = TM.param_defs(cfg)
     keeps = TTS._keeps(cfg, defs, mesh)
-    whole = sum(d.abstract().numel() * 4 for d, keep in zip(
-        T.leaves(defs), T.leaves(keeps)) if not keep)
-    assert whole > 0
-    assert TD.trace_cost(cfg, SMALL["train"], mesh)["peak"] >= whole
+    working = sum(NamedSharding(mesh, P(*(
+        e if e == "model" and "model" in keep else None
+        for e in sh.spec))).shard_bytes(d.abstract())
+        for d, sh, keep in zip(T.leaves(defs),
+                               T.leaves(param_shardings(defs, mesh)),
+                               T.leaves(keeps)))
+    assert working > TD.device_bytes(cfg, SMALL["train"], mesh)["param_bytes"]
+    assert TD.trace_cost(cfg, SMALL["train"], mesh)["peak"] >= working
 
 
 def test_peak_extrapolation_matches_full_depth():
     """The peak traced at ``PEAK_UNITS`` and extrapolated equals the peak
     of the whole 36-layer step traced at once (qwen3-8b decode_32k on the
-    single production mesh, a few seconds); from one and two units it
-    would not (the peak falls at another moment of a shallow step)."""
+    single production mesh, a few seconds).  The decode holds nothing
+    that grows with its depth (its cache is attended where it lies, no
+    gather of it), so the peak is one layer's and one and two units
+    give it too."""
     from repro_torch.configs.registry import get_config, get_shape
     from repro_torch.launch.mesh import make_production_mesh
     fake_world(256)
@@ -290,7 +351,7 @@ def test_peak_extrapolation_matches_full_depth():
         fake_world(8)
     assert units == list(TD.PEAK_UNITS)
     assert peak == full
-    assert TD.extrapolate(p1, p2, TD.n_units(cfg)) < 0.6 * full
+    assert p1 == p2 == full
 
 
 NO_JAX = """

@@ -27,8 +27,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from lm_parity import one_thread  # noqa: E402,F401
 from repro_torch import DHNSWEngine, EngineConfig, convert  # noqa: E402
 from repro_torch.kernels.quant_topk.ref import ids_agree_up_to_ties  # noqa: E402
+
+# one torch thread: under a parallel run (workers sharing the cores) a
+# pool of threads a process spends most of its time waiting
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-4
