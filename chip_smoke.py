@@ -192,12 +192,30 @@ Phases, each printing its own lines:
     tree whose meshed steps gathered their weights and cache over
     ``model`` (``MESH_GATHERED``) and holds each decode cell's working
     set to twice its arguments and each train cell's FLOPs to twice its
-    model FLOPs.
+    model FLOPs; each train cell's working set and wire bytes stand
+    beside the parent tree's (``MESH_NO_SP``, f5882fe, before sequence
+    parallelism): the
+    working set at most ``SP_WORKING_SET`` and fallen by at least the
+    layer inputs' (tp - 1)/tp, the wire at most ``SP_WIRE`` x that of the
+    step with it off; every prefill and decode cell's equal to the parent
+    tree's; (g) Megatron
+    sequence parallelism in the meshed train step: qwen3-8b at full
+    width, 2 layers, 4 x 4096, on (1, 4) gloo rank processes on the card
+    in f32 compute on bf16-rounded weights, the loss and grad norm within
+    ``SP_TOL`` of the unmeshed step's on the same weights and batch, the
+    sequence all-gathers counted on every rank, and the bytes a rank
+    keeps allocated between forward and backward at most the unmeshed
+    step's less ``SP_KEEP`` x L B S d 4 (tp - 1)/tp;
+20. the six twins of ``examples/`` (``examples/torch_*.py``), each a
+    subprocess with ``--device cuda``, all exiting 0; then
+    ``torch_rag_serve.py``'s ``main`` in this process, its
+    ``decode_attention`` launches counted into the kernels' line.
 
 Phases 15-17 run right after phase 9 (the LM phases together, on a
 host not yet loaded by the pool phases' servers and threads; 17 once
 15's weights are freed), then phase 19 (its train step once 17a's
-state is freed), then phase 18, then phases 10-14.  The training path
+state is freed), then phase 20, then phase 18, then phases 10-14.  The
+training path
 launches none of the four kernels: phase 17a reads every count at 0.
 
 Phase 4 runs last: the gather's launches include phase 9's retrieval,
@@ -476,6 +494,55 @@ MESH_GATHERED = {
         63696789568, 4.57762144256e11, 5427101696, 60047323200),
     "qwen3-moe-30b-a3b|decode_32k|multi": (
         25847581320, 3.4484518912e11, 4621008896, 22198114920)}
+# 19a: the parent tree's dry run of the same cells (f5882fe, before sequence
+# parallelism; ``python -m repro_torch.launch.dryrun --arch <a> --shape
+# all --both-meshes`` on the host): working set a device and collective
+# wire bytes a device
+MESH_NO_SP = {
+    "qwen3-8b|decode_32k|multi": (2301842480.0, 12915840.0),
+    "qwen3-8b|decode_32k|single": (3579265120.0, 25831680.0),
+    "qwen3-8b|prefill_32k|multi": (24463108096.0, 46368600480.0),
+    "qwen3-8b|prefill_32k|single": (46827268096.0, 92170969920.0),
+    "qwen3-8b|train_4k|multi": (18953794584.0, 97274619049.5),
+    "qwen3-8b|train_4k|single": (35237032984.0, 188750484637.5),
+    "qwen3-moe-30b-a3b|decode_32k|multi": (4681677876.0, 13092480.0),
+    "qwen3-moe-30b-a3b|decode_32k|single": (5522851940.0, 26184960.0),
+    "qwen3-moe-30b-a3b|prefill_32k|multi": (26910093316.0, 36679758240.0),
+    "qwen3-moe-30b-a3b|prefill_32k|single": (48905154564.0, 73170772800.0),
+    "qwen3-moe-30b-a3b|train_4k|multi": (18092246564.0, 73096006860.0),
+    "qwen3-moe-30b-a3b|train_4k|single": (34037712420.0, 133565107380.0)}
+# sequence parallelism's saved layer inputs, (tp - 1)/tp of L x B_loc x S
+# x d x 2 B a train cell, and the working set a device it must come to
+# at most (the layer inputs' share gone, one layer's gathered input of
+# slack), each against this tree's step with sequence parallelism off
+# (19a traces it where the cell runs more than one micro-step: each rank
+# now takes its share of every micro-batch; otherwise f5882fe's step is
+# that step); the wire may rise by the recompute's second
+# all-gather a layer: 11 half-collectives (6 all-gathers, 5
+# reduce-scatters) where the all-reduces were 5 (ring: one all-reduce =
+# two halves), +10 %
+SP_SAVED = {"qwen3-8b|train_4k|single": 18.12e9,
+            "qwen3-8b|train_4k|multi": 9.06e9,
+            "qwen3-moe-30b-a3b|train_4k|single": 6.04e9,
+            "qwen3-moe-30b-a3b|train_4k|multi": 3.02e9}
+SP_WORKING_SET = {"qwen3-8b|train_4k|single": 17.66e9,
+                  "qwen3-8b|train_4k|multi": 10.17e9,
+                  "qwen3-moe-30b-a3b|train_4k|single": 28.13e9,
+                  "qwen3-moe-30b-a3b|train_4k|multi": 15.14e9}
+SP_WIRE = 1.11
+# 19g: the meshed train step sequence parallel over (1, model) gloo ranks
+MESH_SP = dict(arch="qwen3-8b", n_layers=2, batch=4, seq=4096, model=4)
+MESH_SP_SMOKE = dict(arch="qwen3-8b", n_layers=2, batch=2, seq=64, model=4)
+SP_TOL, SP_KEEP = 1e-5, 0.9
+# phase 20: each twin's arguments on the card (the CLI defaults but
+# where a run would take minutes: train_lm's 200 steps, the demos'
+# phases)
+EXAMPLE_RUNS = (("quickstart", ()), ("rag_serve", ()),
+                ("train_lm", ("--steps", "12")),
+                ("live_ingest", ("--seconds", "1.0")),
+                ("online_serving", ("--clients", "4", "--requests", "8",
+                                    "--n", "8000")),
+                ("distributed_search", ()))
 MESH_SMOKE = False           # the CPU test's smoke sizes (never on the card)
 # decode_attention vs its plain version: in bf16 within a few bf16 steps
 # of the largest output (both sides round the same f32 result once, so
@@ -4341,6 +4408,17 @@ for arch in sys.argv[2].split(","):
                 AbstractMesh(*MESHES["multi" if mp else "single"]),
                 r["micro_steps"])
             print("CELL " + json.dumps(r), flush=True)
+from repro_torch.models import transformer as TF
+on = TF.seq_parallel
+TF.seq_parallel = lambda shape, mesh: False
+for arch in sys.argv[2].split(","):
+    # a cell of one micro-step runs as f5882fe's did with it off
+    if ("train_4k" in sys.argv[3].split(",")
+            and D.MICRO_OVERRIDES.get((arch, "train_4k"), 1) > 1):
+        for mp in (False, True):
+            r = D.run_cell(arch, "train_4k", mp)
+            print("NOSP " + json.dumps(r), flush=True)
+TF.seq_parallel = on
 for mp in (False, True):
     for v in H.VARIANTS:
         t = time.perf_counter()
@@ -4521,6 +4599,13 @@ def phase_mesh_dryrun() -> dict:
     ref = torch_dryrun_reference.load()
     want_h = {(r["cell"], r["mesh"]): r for r in ref["dhnsw"]}
     n_cells, counts = 0, {}
+    no_sp = {}          # this tree's train cells, sequence parallelism off
+    for line in out.stdout.splitlines():
+        if line.startswith("NOSP "):
+            r = json.loads(line[5:])
+            no_sp[f"{r['arch']}|{r['shape']}|{r['mesh']}"] = (
+                r["memory"]["working_set_bytes"],
+                r["collectives"]["wire_bytes_per_device"])
     for line in out.stdout.splitlines():
         kind, _, body = line.partition(" ")
         if kind not in ("CELL", "DHNSW", "DHNSW14"):
@@ -4574,6 +4659,8 @@ def phase_mesh_dryrun() -> dict:
                                  f"twice its model FLOPs")
         old = MESH_GATHERED.get(key)
         n_cells += 1
+        sp_line = _sp_check(key, ws, c["wire_bytes_per_device"],
+                            no_sp.get(key, MESH_NO_SP.get(key)))
         log(f"[19a dry run] {key}: {r['n_devices']} ranks, params "
             f"{mem['param_bytes']} opt {mem['opt_bytes']} cache "
             f"{mem['cache_bytes']} inputs {mem['input_bytes']} = "
@@ -4595,7 +4682,8 @@ def phase_mesh_dryrun() -> dict:
                f"({ws / old[3]:.4f} of it; {old[0]:.6g} B as its own counter "
                f"read it), flops {old[1]:.4g} ({flops / old[1]:.4f}), "
                f"collective operand {old[2]:.4g} B "
-               f"({c['operand_bytes_total'] / old[2]:.4f})" if old else ""))
+               f"({c['operand_bytes_total'] / old[2]:.4f})" if old else "")
+            + sp_line)
     if n_cells != len(archs) * len(shapes) * 2 or len(counts) != 6:
         raise AssertionError(f"19a: {n_cells} cells, {len(counts)} (1, 4) "
                              f"counts")
@@ -4603,6 +4691,40 @@ def phase_mesh_dryrun() -> dict:
         f"| host only (fake backend, FakeTensorMode) | "
         f"{time.perf_counter() - t0:.1f} s with the process's start")
     return counts
+
+
+def _sp_check(key: str, ws: float, wire: float, off) -> str:
+    """19a's reading of a cell against f5882fe's (``MESH_NO_SP``) and, for
+    a train cell, against this tree's step with sequence parallelism off
+    (``off``: working set, wire): the working set within
+    ``SP_WORKING_SET`` and fallen from ``off``'s by at least
+    ``SP_SAVED``, the wire between ``off``'s and ``SP_WIRE`` x it; any
+    other cell's both equal to f5882fe's."""
+    if key not in MESH_NO_SP:
+        return ""
+    ws0, wire0 = MESH_NO_SP[key]
+    if key in SP_SAVED:
+        ws1, wire1 = off
+        if ws > SP_WORKING_SET[key] or ws1 - ws < SP_SAVED[key]:
+            raise AssertionError(
+                f"19a {key}: working set {ws:.6g} B a device, "
+                f"{ws1:.6g} with sequence parallelism off: fallen by "
+                f"{ws1 - ws:.6g}, the layer inputs' share "
+                f"{SP_SAVED[key]:.6g}, bound {SP_WORKING_SET[key]:.6g}")
+        if not wire1 <= wire <= SP_WIRE * wire1:
+            raise AssertionError(f"19a {key}: wire {wire:.6g} B a device, "
+                                 f"{wire1:.6g} with sequence parallelism "
+                                 f"off (x{SP_WIRE} at most)")
+        return (f" | sequence parallel: working set {ws:.6g} B a device, "
+                f"{ws1:.6g} off (fallen by {ws1 - ws:.6g}, the layer "
+                f"inputs' share {SP_SAVED[key]:.6g}; bound "
+                f"{SP_WORKING_SET[key]:.6g}), f5882fe's {ws0:.6g}; wire "
+                f"{wire:.6g} B, {wire1:.6g} off (x{wire / wire1:.4f}), "
+                f"f5882fe's {wire0:.6g} (x{wire / wire0:.4f})")
+    if (ws, wire) != (ws0, wire0):
+        raise AssertionError(f"19a {key}: working set {ws} and wire {wire} "
+                             f"B a device, f5882fe's {ws0} and {wire0}")
+    return " | working set and wire equal to f5882fe's"
 
 
 def _as_dtensor(t, mesh, sharding):
@@ -5367,6 +5489,218 @@ def phase_mesh_families(device, smi: str) -> int:
     return da
 
 
+# one rank of phase 19g: argv = src dir, rank, tmp dir, model ranks,
+# device, smoke (1: the smoke config), geometry (JSON); writes
+# sp_rank<rank>.npz
+MESH_SP_RANK = r"""
+import faulthandler, json, sys
+faulthandler.enable()
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+rank, tmp, model, dev = int(sys.argv[2]), sys.argv[3], int(sys.argv[4]), \
+    sys.argv[5]
+smoke, geom = sys.argv[6] == "1", json.loads(sys.argv[7])
+if dev == "cuda":
+    torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv_sp",
+                        world_size=model, rank=rank)
+from torch.distributed.device_mesh import init_device_mesh
+sys.path.insert(0, sys.argv[1] + "/..")
+import chip_smoke as CS
+mesh = init_device_mesh(dev, (1, model), mesh_dim_names=("data", "model"))
+out = CS.sp_step(CS.sp_config(geom, smoke), torch.device(dev), geom, mesh)
+np.savez(f"{tmp}/sp_rank{rank}.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+def sp_config(geom: dict, smoke: bool):
+    """19g's configuration: full width (the smoke config's with
+    ``smoke``), ``geom``'s depth, f32 compute."""
+    cfg = (smoke_config if smoke else get_config)(geom["arch"])
+    return cfg.replace(n_layers=geom["n_layers"], dtype="float32")
+
+
+def sp_step(cfg, device, geom: dict, mesh=None) -> dict:
+    """One train step of 19g from weights drawn from ``SEED`` on
+    ``device`` (rounded to bf16, kept in f32 masters) and the seeded
+    batch, unmeshed or on ``mesh`` (each rank's shards cut from the same
+    draw): loss, grad norm, s, the bytes allocated between the forward
+    and the backward (``loss_fn``'s result held, on the card) and the
+    collectives counted (all-gathers over ``model`` of a (B, S/tp, d)
+    f32 sequence shard)."""
+    from repro_torch.core.mesh import CollectiveCounter
+    B, S = geom["batch"], geom["seq"]
+    shape = InputShape("train_4k", S, B, "train")
+    params = PR.init_params(
+        LM.param_defs(cfg), torch.Generator(device=device).manual_seed(SEED),
+        cast=lambda name, t: t.to(torch.bfloat16).to(t.dtype))
+    batch = _on(next(token_stream(cfg.vocab_size, B, S, seed=SEED)), device)
+    if mesh is None:
+        step, opt = TS.make_train_step(cfg, shape), ADAMW.init(params)
+    else:
+        step, (p_sh, o_sh, b_sh), _, _ = TS.make_step(cfg, shape, mesh)
+        params = TREE.tree_map(PR.shard_tensor, params, p_sh)
+        zeros = TREE.tree_map(lambda t: torch.zeros(t.shape, device=device),
+                              params)
+        opt = ADAMW.AdamWState(
+            PR.shard_tensor(torch.zeros((), dtype=torch.int32,
+                                        device=device), o_sh.step),
+            TREE.tree_map(PR.shard_tensor, zeros, o_sh.m),
+            TREE.tree_map(PR.shard_tensor, zeros, o_sh.v))
+        del zeros
+        batch = {k: PR.shard_tensor(v, b_sh[k]) for k, v in batch.items()}
+    _free(device)
+    cuda = device.type == "cuda"
+    kept, real = [], TS.loss_fn
+
+    def probe(*a, **k):           # the step's forward, its result held
+        _sync(device)
+        before = torch.cuda.memory_allocated() if cuda else 0
+        out = real(*a, **k)
+        _sync(device)
+        kept.append((torch.cuda.memory_allocated() if cuda else 0) - before)
+        return out
+    TS.loss_fn = probe
+    try:
+        t = time.perf_counter()
+        with CollectiveCounter() as cc:
+            params, opt, m = step(params, opt, batch)
+        _sync(device)
+        step_s = time.perf_counter() - t
+    finally:
+        TS.loss_fn = real
+    tp = 1 if mesh is None else PR.axis_size(mesh, "model")
+    shard = B * S // tp * cfg.d_model * 4
+    seq = sum(1 for kind, nbytes, g in cc.ops
+              if kind == "all-gather" and g == tp and nbytes == shard)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "s": step_s, "kept": kept[0], "seq_gathers": seq,
+           "n_collectives": len(cc.ops),
+           "peak": torch.cuda.max_memory_allocated() if cuda else 0}
+    del params, opt, step, batch
+    _free(device)
+    return out
+
+
+def phase_mesh_sp(device, smi: str) -> None:
+    """Phase 19g: the meshed train step sequence parallel (the
+    reference's ``seq_shard``: S over ``model`` between the layers) over
+    (1, model) gloo rank processes on the card, against the unmeshed
+    step in this process on the same weights and batch: the loss and
+    grad norm within ``SP_TOL`` (relative), the sequence all-gathers
+    counted on every rank, and each rank's bytes kept between forward
+    and backward at most the unmeshed step's less ``SP_KEEP`` x
+    L B S d 4 (tp - 1)/tp (on the card)."""
+    t0 = time.perf_counter()
+    geom = MESH_SP_SMOKE if MESH_SMOKE else MESH_SP
+    cfg, tp = sp_config(geom, MESH_SMOKE), geom["model"]
+    _free(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    want = sp_step(cfg, device, geom)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        t = time.perf_counter()
+        res = _spawn(MESH_SP_RANK, lambda r: (
+            r, tmp, tp, device.type, int(MESH_SMOKE), json.dumps(geom)), tp,
+            "19g", tmp, lambda r: f"sp_rank{r}.npz")
+        spawn_s = time.perf_counter() - t
+    res = [{k: float(v) for k, v in r.items()} for r in res]
+    saved = (cfg.n_layers * geom["batch"] * geom["seq"] * cfg.d_model * 4
+             * (tp - 1) / tp)
+    for r, got in enumerate(res):
+        for k in ("loss", "grad_norm"):
+            if abs(got[k] - want[k]) > SP_TOL * abs(want[k]):
+                raise AssertionError(f"19g rank {r}: {k} {got[k]!r}, the "
+                                     f"unmeshed step's {want[k]!r}")
+        if got["seq_gathers"] < 2 * cfg.n_layers:
+            raise AssertionError(f"19g rank {r}: {got['seq_gathers']:.0f} "
+                                 f"sequence all-gathers")
+        if (device.type == "cuda"
+                and got["kept"] > want["kept"] - SP_KEEP * saved):
+            raise AssertionError(
+                f"19g rank {r}: {got['kept']:.6g} B kept between forward "
+                f"and backward, the unmeshed step {want['kept']:.6g} B, "
+                f"bound {want['kept'] - SP_KEEP * saved:.6g}")
+    rel = max(abs(r[k] - want[k]) / abs(want[k])
+              for r in res for k in ("loss", "grad_norm"))
+    log(f"[19g mesh sp] {cfg.name} ({cfg.n_layers} layers, f32 compute on "
+        f"bf16-rounded weights), {geom['batch']} x {geom['seq']}, on (1, "
+        f"{tp}) gloo ranks on {device.type}, sequence parallel: loss "
+        f"{[r['loss'] for r in res]} grad_norm "
+        f"{[r['grad_norm'] for r in res]} against the unmeshed "
+        f"{want['loss']!r} / {want['grad_norm']!r} (max rel diff "
+        f"{rel:.3g}, bound {SP_TOL:g}); sequence all-gathers a rank "
+        f"{[int(r['seq_gathers']) for r in res]} of "
+        f"{[int(r['n_collectives']) for r in res]} collectives; bytes kept "
+        f"between forward and backward a rank "
+        f"{[int(r['kept']) for r in res]} against the unmeshed "
+        f"{int(want['kept'])} (fallen by at least "
+        f"{want['kept'] - max(r['kept'] for r in res):.6g}, the layer inputs'"
+        f" share {saved:.6g}, bound {SP_KEEP:g} of it); peak allocated a "
+        f"rank {[int(r['peak']) for r in res]}, unmeshed "
+        f"{int(want['peak'])} | s a step: ranks "
+        f"{[round(r['s'], 4) for r in res]}, unmeshed {want['s']:.4f} "
+        f"(gloo's host copies) | {smi} | {spawn_s:.1f} s for the ranks, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_examples(device, smi: str) -> int:
+    """Phase 20: the six twins of ``examples/`` as subprocesses with
+    ``--device <device>`` at ``EXAMPLE_RUNS``' arguments, run side by
+    side, each exiting 0; then ``torch_rag_serve.py``'s ``main`` here,
+    every count set to 0 just before it and read just after.  Returns its
+    ``decode_attention`` launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as tmp:
+        procs = {}
+        for name, args in EXAMPLE_RUNS:
+            if name == "train_lm":
+                args = args + ("--ckpt-dir", f"{tmp}/ckpt")
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"),
+                 "--device", device.type, *args], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, OMP_NUM_THREADS="2"))
+        outs = {}
+        try:
+            for name, p in procs.items():
+                out, err = p.communicate(timeout=600)
+                outs[name] = (p.returncode, out, err,
+                              time.perf_counter() - t0)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for name, (rc, out, err, s) in outs.items():
+        if rc:
+            raise AssertionError(f"20 torch_{name}.py exited {rc}: "
+                                 f"{err[-3000:]}")
+        lines = [x for x in out.splitlines() if x.strip()]
+        log(f"[20 example] torch_{name}.py --device {device.type} exited 0 "
+            f"in {s:.1f} s (all six side by side): "
+            + " / ".join(x.strip() for x in lines))
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_rag_serve
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    _reset_launches()
+    t = time.perf_counter()
+    torch_rag_serve.main(["--device", device.type])
+    launches = _launches()
+    if device.type == "cuda" and launches["decode_attention"] == 0:
+        raise AssertionError("20 torch_rag_serve.py: no decode_attention "
+                             "launch")
+    log(f"[20 examples] six twins exited 0; torch_rag_serve.main here in "
+        f"{time.perf_counter() - t:.1f} s, launches {launches} | {smi} | "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches["decode_attention"]
+
+
 def batch_line(geom: dict) -> str:
     return (f"{geom['batch']} prompts x {geom['seq']} tokens, "
             f"{geom['steps']} greedy steps")
@@ -5375,8 +5709,9 @@ def batch_line(geom: dict) -> str:
 def phase_mesh(device, smi: str, *, step_17a: float) -> int:
     """Phase 19, the mesh: (a) the dry runs (host only), then on a host
     mesh of one NCCL rank (b) the meshed train step and (c) the meshed
-    serve steps, (d) ``_moe_shardmap``, (e) the d-HNSW step and (f) every
-    family's meshed serve steps over gloo ranks on the card.  Returns
+    serve steps, (d) ``_moe_shardmap``, (e) the d-HNSW step, (f) every
+    family's meshed serve steps over gloo ranks on the card and (g) the
+    meshed train step sequence parallel over gloo ranks on the card.  Returns
     the ``decode_attention`` launches of 19c and 19f."""
     from repro_torch.launch.mesh import make_host_mesh
     t19 = time.perf_counter()
@@ -5394,6 +5729,7 @@ def phase_mesh(device, smi: str, *, step_17a: float) -> int:
             phase_mesh_moe(device, **MESH_MOE)
             phase_mesh_dhnsw(device, mesh, counts, **MESH_DHNSW)
             da += phase_mesh_families(device, smi)
+            phase_mesh_sp(device, smi)
         finally:
             dist.destroy_process_group()
     log(f"[19] {time.perf_counter() - t19:.1f} s")
@@ -5702,6 +6038,7 @@ def main(argv=None) -> int:
     train = phase_training(device, dev_info["smi"])
     launches["decode_attention"] += phase_mesh(
         device, dev_info["smi"], step_17a=train["step_s"])
+    launches["decode_attention"] += phase_examples(device, dev_info["smi"])
     paper_launches, paper_recorded, paper_bufs = phase_paper(
         ds, meta, store, device, graph_batch=exact_batches["graph"])
     ins_launches, ins_recorded, ins_bufs = phase_insert(

@@ -112,7 +112,7 @@ def search_decoded_graph(part: DecodedPartition, q, k: int, ef: int):
     np_max = part.adjacency.shape[2]
     bd, bi = S.batched_beam_search(part.vectors[:, :np_max], part.adjacency,
                                    q, part.entry, ef=max(ef, k), n_levels=1)
-    safe = bi.clamp(min=0)
+    safe = bi.clamp(0, part.valid.shape[1] - 1)    # JAX clamps the gather
     bd = torch.where((bi >= 0) & part.valid.gather(1, safe), bd, S.INF)
     base_d = bd[:, :k]
     base_i = torch.where(torch.isfinite(base_d),
@@ -251,8 +251,8 @@ def search_decoded_graph_local(part: DecodedPartition, q, k: int, ef: int):
     np_max = part.adjacency.shape[2]
     bd, bi = S.batched_beam_search(part.vectors[:, :np_max], part.adjacency,
                                    q, part.entry, ef=max(ef, k), n_levels=1)
-    bd = torch.where((bi >= 0) & part.valid.gather(1, bi.clamp(min=0)), bd,
-                     S.INF)
+    bd = torch.where((bi >= 0) & part.valid.gather(
+        1, bi.clamp(0, part.valid.shape[1] - 1)), bd, S.INF)
     ov_d = (part.vectors[:, np_max:] - q[:, None, :]).square().sum(-1)
     ov_d = torch.where(part.valid[:, np_max:], ov_d, S.INF)
     all_d = torch.cat([bd, ov_d], dim=1)
@@ -289,7 +289,7 @@ def serve_quant_pool(spec: LayoutSpec, cache_qg, cache_qv, cache_qs,
         else:
             d, li = search_decoded_scan_local(part, qs, m)
         live = (li >= 0) & pair_valid[sl][:, None] & torch.isfinite(d)
-        safe = li.long().clamp(min=0)
+        safe = li.long().clamp(0, part.gids.shape[1] - 1)
         payload = torch.stack([part.gids.gather(1, safe),
                                rows.gather(1, safe),
                                pids[:, None].expand_as(li)],

@@ -16,7 +16,12 @@ Reference behaviour kept on purpose: stable sorts everywhere (ties to
 the lower index, as ``jnp.argsort`` and ``lax.top_k`` order them), and
 the visited-bitmap scatter that marks node 0 for every neighbour that is
 not fresh (``search.py:104-105``), so node 0 is skipped after the first
-expansion that meets a visited or padded neighbour.
+expansion that meets a visited or padded neighbour.  And JAX's
+out-of-bounds indexing: a neighbour id past the lane's nodes (a
+partition's adjacency after an insert can decode one: the overflow
+slot's gid written into the span's graph block) is clamped to the last
+node where it is read (its vector, its row, its visited bit) and
+dropped where the visited bitmap is written.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ def _sq_dists(vectors, ids, q):
     """Squared L2 from q (B, D) to vectors[ids] for ids (B, n); invalid ids
     (<0) -> inf.  ``vectors`` is (N, D) shared or (B, N, D) per lane."""
     valid = ids >= 0
-    safe = torch.where(valid, ids, 0).long()
+    safe = torch.where(valid, ids, 0).long().clamp(max=vectors.shape[-2] - 1)
     if vectors.dim() == 3:
         rows = vectors[_lanes(ids, ids.shape[0])[:, None], safe]
     else:
@@ -50,7 +55,9 @@ def _layer(adjacency, layer: int):
 
 
 def _neighbours(adj_layer, u):
-    """Neighbour rows (B, deg) of nodes u (B,)."""
+    """Neighbour rows (B, deg) of nodes u (B,) (u clamped to the last
+    row, as a JAX gather clamps it)."""
+    u = u.clamp(max=adj_layer.shape[-2] - 1)
     if adj_layer.dim() == 3:
         return adj_layer[_lanes(u, u.shape[0]), u]
     return adj_layer[u]
@@ -107,7 +114,8 @@ def batched_beam_search(vectors, adjacency, queries, entry, *, ef: int,
     beam_i = torch.full((B, ef), -1, dtype=torch.long, device=dev)
     beam_i[:, 0] = ep
     expanded = torch.zeros((B, ef), dtype=torch.bool, device=dev)
-    visited = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    # column n: where the writes at ids past the nodes go (JAX drops them)
+    visited = torch.zeros((B, n + 1), dtype=torch.bool, device=dev)
     visited[lanes, ep] = True
 
     it = 0
@@ -125,9 +133,9 @@ def batched_beam_search(vectors, adjacency, queries, entry, *, ef: int,
 
         nbrs = _neighbours(adj0, u).long()                  # (B, deg)
         ok = nbrs >= 0
-        seen = visited.gather(1, torch.where(ok, nbrs, 0))
+        seen = visited.gather(1, torch.where(ok, nbrs, 0).clamp(max=n - 1))
         fresh = ok & ~seen & active[:, None]
-        visited.scatter_(1, torch.where(fresh, nbrs, 0), True)
+        visited.scatter_(1, torch.where(fresh, nbrs, 0).clamp(max=n), True)
         nd = torch.where(fresh, _sq_dists(vectors, nbrs, queries), INF)
 
         all_d = torch.cat([beam_d, nd], dim=1)

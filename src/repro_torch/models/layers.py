@@ -42,7 +42,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mesh import axis_size, coordinate, group
-from repro_torch.models.params import gather_model, reduce_model, to_model
+from repro_torch.models.params import (gather_model, reduce_model,
+                                       seq_scatter, to_model)
 
 NEG = -1e30
 
@@ -257,7 +258,7 @@ def vocab_mesh(cfg, mesh):
     return mesh if tp > 1 and cfg.vocab_size % tp == 0 else None
 
 
-def embed(params, tokens, dt, vmesh=None):
+def embed(params, tokens, dt, vmesh=None, seq: bool = False):
     """Token embeddings in ``dt``.  Serving gathers then casts: the same
     numbers as the reference's cast then gather, without a copy of the
     whole table.  When the table takes a gradient the reference's order
@@ -265,7 +266,9 @@ def embed(params, tokens, dt, vmesh=None):
     tokens' gradients then runs in ``dt`` (bf16), as the reference's does,
     before the cast back to the f32 master.  With ``vmesh`` the table is
     this rank's rows: a token outside them looks up 0, and the rows are
-    summed over ``model`` (one of them is not 0: exact)."""
+    summed over ``model`` (one of them is not 0: exact); with ``seq``
+    reduce-scattered over S instead, to this rank's shard of the
+    sequence (sequence parallelism's first split)."""
     table = params["embed"]
     if vmesh is not None:
         lo = coordinate(vmesh, "model") * table.shape[0]
@@ -278,7 +281,8 @@ def embed(params, tokens, dt, vmesh=None):
         x = table[tokens].to(dt)
     if vmesh is None:
         return x
-    return reduce_model(torch.where(inside[..., None], x, 0.0), vmesh)
+    x = torch.where(inside[..., None], x, 0.0)
+    return seq_scatter(x, vmesh) if seq else reduce_model(x, vmesh)
 
 
 def unembed(params, x, vmesh=None):

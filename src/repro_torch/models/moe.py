@@ -14,6 +14,12 @@ Switch/GShard load-balance loss.
   are FSDP-sharded, and one ``all_reduce(SUM)`` over ``model`` combines
   the outputs (the reference's ``psum``).  Only ``all_reduce``,
   ``all_gather`` and their reduce-scatter transpose, so it runs on gloo.
+  Under sequence parallelism (``seq``) it takes this rank's shard of the
+  sequence, gathers it over S (so the capacity sees the reference's
+  tokens) and reduce-scatters the output over S in place of the
+  all-reduce; each rank's gradient of the gathered input is then its
+  own experts' part, and the routing's (the same on every rank) is taken
+  on ``model`` rank 0 alone.
 * ``_moe_dense`` — no mesh, or one the experts don't divide.
 
 Three choices keep the numbers the reference's:
@@ -35,8 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.mesh import axis_names, axis_size, coordinate
-from repro_torch.models.params import (ParamDef, gather_data, reduce_model,
-                                       to_model)
+from repro_torch.models.params import (ParamDef, gather_data, gather_model,
+                                       reduce_model, seq_gather, seq_part,
+                                       seq_scatter, to_model)
 
 
 def moe_param_defs(cfg, Lx, st):
@@ -139,9 +146,13 @@ def expert_keep(cfg, mesh) -> tuple:
     return ("model", "data") if _shard_f(cfg, mesh) else ("model",)
 
 
-def _moe_shardmap(cfg, p, x, mesh):
+def _moe_shardmap(cfg, p, x, mesh, seq: bool = False):
     """x: (B_loc, S, d), this rank's batch shard, the same on every
-    ``model`` rank; p's experts: this rank's (E/ep, d, f[/fsdp])."""
+    ``model`` rank (with ``seq`` its (B_loc, S/ep, d) shard of the
+    sequence, and so is y); p's experts: this rank's (E/ep, d,
+    f[/fsdp])."""
+    if seq:
+        x = seq_gather(x, mesh)
     dt = x.dtype
     ep = axis_size(mesh, "model")
     E = cfg.n_experts
@@ -150,10 +161,13 @@ def _moe_shardmap(cfg, p, x, mesh):
     B_loc, S, d = x.shape
     xf = x.reshape(-1, d)
     T = xf.shape[0]
-    top_p, top_i, aux = _route(cfg, xf, p["router"])
+    my = coordinate(mesh, "model")
+    # the routing's gradient (the same on every rank) reaches a gathered
+    # input from one rank only
+    top_p, top_i, aux = _route(cfg, xf if not seq or my == 0
+                               else xf.detach(), p["router"])
     k = cfg.moe_top_k
     C = _capacity(cfg, T, ep)
-    my = coordinate(mesh, "model")
     fe = top_i.reshape(-1)
     ft = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
     order = torch.argsort(fe, stable=True)
@@ -166,7 +180,7 @@ def _moe_shardmap(cfg, p, x, mesh):
     mine = (rel >= 0) & (rel < E_loc) & keep
     slot = torch.where(mine, rel * C + rank, E_loc * C)
     buf = torch.zeros((E_loc * C + 1, d), dtype=dt, device=x.device)
-    buf = buf.index_copy(0, slot, to_model(xf, mesh)[stk]
+    buf = buf.index_copy(0, slot, (xf if seq else to_model(xf, mesh))[stk]
                          * mine[:, None].to(dt))
     wg, wu, wd = (p[n].to(dt) for n in ("we_g", "we_u", "we_d"))
     if _shard_f(cfg, mesh) and wg.shape[2] < cfg.expert_d_ff:
@@ -181,8 +195,8 @@ def _moe_shardmap(cfg, p, x, mesh):
     # back to arrival order, each token's k contributions summed in one
     # fixed order (as the dense path does)
     y = torch.empty_like(contrib).index_copy(0, order, contrib)
-    y = reduce_model(y.view(T, k, d).sum(1), mesh)
-    return y.reshape(B_loc, S, d), aux
+    y = y.view(T, k, d).sum(1).reshape(B_loc, S, d)
+    return (seq_scatter(y, mesh) if seq else reduce_model(y, mesh)), aux
 
 
 def use_shardmap(cfg, mesh) -> bool:
@@ -193,8 +207,12 @@ def use_shardmap(cfg, mesh) -> bool:
             and cfg.n_experts % axis_size(mesh, "model") == 0)
 
 
-def moe_ffn(cfg, p, x, mesh=None):
-    """x: (B, S, d) -> (y, aux_loss)."""
+def moe_ffn(cfg, p, x, mesh=None, sp: bool = False):
+    """x: (B, S, d) -> (y, aux_loss); with ``sp`` x and y are this rank's
+    shards of the sequence."""
     if use_shardmap(cfg, mesh):
-        return _moe_shardmap(cfg, p, x, mesh)
+        return _moe_shardmap(cfg, p, x, mesh, sp)
+    if sp:
+        y, aux = _moe_dense(cfg, p, gather_model(x, 1, mesh))
+        return seq_part(y, mesh), aux
     return _moe_dense(cfg, p, x)

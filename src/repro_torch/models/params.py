@@ -16,9 +16,13 @@ reference's ``shard_map`` regions): activations are split over the
 batch axes and replicated over ``model``; each weight keeps its
 ``model`` shard and the work it feeds splits over ``model`` (Megatron's
 column- and row-parallel products), joined by the model-axis
-collectives below, which carry the matching backward.  ``seq_shard``
-and ``shard_heads`` are the identity without a mesh, as the reference's
-are.
+collectives below, which carry the matching backward.  Where the
+reference's ``seq_shard`` condition holds, the transformer's training
+forward keeps the residual stream as this rank's shard of the sequence
+(Megatron sequence parallelism): each layer gathers its normed input
+over S (``seq_gather``) and reduce-scatters its output over S
+(``seq_scatter``).  ``seq_shard`` and ``shard_heads`` are the identity
+without a mesh, as the reference's are.
 
 Initial values are drawn from an explicit ``torch.Generator`` on the
 target device with the reference's std (``scale / sqrt(fan_in)``).  The
@@ -369,10 +373,32 @@ class _GatherSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        gt = g.movedim(ctx.dim, 0).contiguous()
-        out = gt.new_empty((gt.shape[0] // ctx.n,) + tuple(gt.shape[1:]))
-        dist.reduce_scatter_tensor(out, gt, group=ctx.grp)
-        return out.movedim(0, ctx.dim), None, None
+        return _reduce_scatter(g, ctx.dim, ctx.grp), None, None
+
+
+def _reduce_scatter(x, dim: int, grp):
+    """This rank's ``1/n`` slice along ``dim`` of ``x`` summed over the
+    ``n`` ranks of ``grp``."""
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // dist.get_world_size(grp),)
+                       + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=grp)
+    return out.movedim(0, dim)
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Partial sums over the ranks to this rank's slice of their total
+    along ``dim`` (a reduce-scatter); the backward gathers the slices'
+    gradients (an all-gather), ``_GatherSum``'s mirror."""
+
+    @staticmethod
+    def forward(ctx, x, dim, grp):
+        ctx.dim, ctx.grp = dim % x.ndim, grp
+        return _reduce_scatter(x, ctx.dim, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.grp), None, None
 
 
 def gather_data(x, dim: int, mesh):
@@ -435,14 +461,51 @@ def col_blocks(h, w, starts, n: int, mesh):
     return h @ torch.cat([w.narrow(-1, s, n) for s in starts], dim=-1)
 
 
+# ---------------------------------------- sequence parallelism (Megatron)
+# Where ``seq_parallel`` holds, a (B, S, d) residual is this rank's S/tp
+# shard of the sequence.  The first split of a tensor replicated over
+# ``model`` is ``seq_shard`` (``model_slice``: a narrow, its gradients
+# summed).  Work split over ``model`` (heads, d_ff, experts) takes its
+# input from ``seq_gather`` (all-gather over S; backward reduce-scatter:
+# each rank's gradient is its own work's part) and gives its partial
+# output to ``seq_scatter`` (reduce-scatter over S; backward all-gather).
+# Work every rank runs whole (heads that do not divide the ranks) takes
+# ``gather_model`` over S (its gradients are the same on every rank) and
+# ``seq_part`` of its output.
+
+
+def seq_parallel(shape, mesh) -> bool:
+    """The reference's ``seq_shard`` condition on a (B, S, d) shape: a
+    ``model`` axis of more than one rank that divides S."""
+    if mesh is None or "model" not in axis_names(mesh):
+        return False
+    tp = axis_size(mesh, "model")
+    return tp > 1 and len(shape) >= 3 and shape[1] % tp == 0
+
+
+def seq_part(x, mesh):
+    """This rank's shard over S of ``x``, replicated over ``model``."""
+    n = x.shape[1] // axis_size(mesh, "model")
+    return model_slice(x, 1, coordinate(mesh, "model") * n, n, mesh)
+
+
 def seq_shard(x, mesh=None):
     """The reference's sequence-parallel constraint on (B, S, d) residuals
-    keeps saved activations 1/tp the size under XLA.  The port's residual
-    stream is a batch-local tensor replicated over ``model`` (each layer
-    is recomputed in the backward from its input), so this is the
-    identity with or without a mesh; sequence-parallel saving is open
-    (ROADMAP)."""
-    return x
+    (batch over the batch axes, S over ``model``): this rank's shard of
+    the sequence where ``seq_parallel`` holds, ``x`` itself otherwise."""
+    return seq_part(x, mesh) if seq_parallel(x.shape, mesh) else x
+
+
+def seq_gather(x, mesh):
+    """The ranks' sequence shards of ``x`` concatenated over S, for work
+    split over ``model`` (its backward is a reduce-scatter)."""
+    return _GatherSum.apply(x, 1, group(mesh, "model"))
+
+
+def seq_scatter(x, mesh):
+    """Partial (B, S, d) results summed over ``model``, this rank's shard
+    of S kept (its backward is an all-gather)."""
+    return _ScatterSum.apply(x, 1, group(mesh, "model"))
 
 
 def shard_heads(t, mesh=None):

@@ -30,6 +30,19 @@ log-sum-exp), or, where neither divides, the whole cache.  Heads that do
 not divide the ranks (llama4's 40 on 16) keep the reference's padded
 ``_attend_tp`` on gathered weights.
 
+Sequence parallelism (the reference's ``seq_shard``): where ``model``
+divides S_total, the training forward carries each rank's shard of the
+sequence between the layers.  A layer norms its shard, gathers the
+normed input over S (``seq_gather``, in place of ``to_model``), runs its
+split work on the whole sequence (RoPE's positions, attention and the
+experts' capacity all see the reference's S) and reduce-scatters the
+partial output over S (``seq_scatter``, in place of ``reduce_model``);
+the residual add is on shards.  Work that runs whole on every rank
+takes ``gather_model`` and ``seq_part``.  The norms' scales, used on
+shards, get their gradients summed over ``model``.  The final hidden is
+gathered over S before the logits or the loss.  Prefill and decode keep
+the whole sequence, as the reference's do.
+
 ``moe`` swaps each layer's SwiGLU for ``models/moe.py``'s expert FFN (plus
 llama4's always-on shared expert) and ``forward`` returns the mean of the
 layers' load-balance losses; ``vlm`` prepends ``patches @ patch_proj`` to
@@ -47,7 +60,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.core.mesh import axis_size, coordinate
 from repro_torch.models.params import (ParamDef, compute_dtype, gather_model,
                                        gather_sum, layer, model_slice,
-                                       reduce_model, seq_shard, shard_heads,
+                                       reduce_model, seq_gather, seq_parallel,
+                                       seq_part, seq_scatter, shard_heads,
                                        to_model, zeros_of)
 
 # ------------------------------------------------------------------ defs
@@ -260,16 +274,41 @@ def attend_cache(cfg, q, k, v, cache, pos, mesh, kv: str, window: int = 0):
     return out
 
 
+def _norm_scale(scale, mesh, sp: bool):
+    """A norm's scale; on sequence shards its gradient (from this rank's
+    positions) is summed over ``model``."""
+    return to_model(scale, mesh) if sp else scale
+
+
+def _seq_in(h, mesh, sp: bool, split: bool):
+    """A block's normed input for its work: gathered over S under
+    sequence parallelism (for ``split`` work, whose gradient is each
+    rank's part, or work run whole); ``to_model``-ed for split work on a
+    replicated stream."""
+    if sp:
+        return seq_gather(h, mesh) if split else gather_model(h, 1, mesh)
+    return to_model(h, mesh) if split else h
+
+
+def _seq_out(y, mesh, sp: bool, split: bool):
+    """A block's output onto the residual stream: partial sums of split
+    work summed over ``model`` (reduce-scattered over S under sequence
+    parallelism), work run whole cut to this rank's shard."""
+    if sp:
+        return seq_scatter(y, mesh) if split else seq_part(y, mesh)
+    return reduce_model(y, mesh) if split else y
+
+
 def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
-                pos=None, mesh=None, kv: str = ""):
-    """x: (B, S, d) for train/prefill; (B, 1, d) for decode.  Prefill
+                pos=None, mesh=None, kv: str = "", sp: bool = False):
+    """x: (B, S, d) for train/prefill; (B, 1, d) for decode; with ``sp``
+    this rank's (B, S/tp, d) shard of a training sequence.  Prefill
     returns this rank's kv heads (``store_prompt`` places them)."""
     dt = x.dtype
     tp = attn_tp(cfg, mesh)
-    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    h = L.rms_norm(x, _norm_scale(p["attn_norm"], mesh, sp), cfg.norm_eps)
+    h = _seq_in(h, mesh, sp, tp)
     B, S, _ = h.shape
-    if tp:
-        h = to_model(h, mesh)
     q, k, v = qkv(cfg, p, h, mesh, all_kv=mode == "decode" and tp
                   and kv != "heads")
     if cfg.qk_norm:
@@ -293,9 +332,7 @@ def _attn_block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
                else _attend_tp(cfg, q, k, v, window, mesh))
         new_cache = (k, v) if mode == "prefill" else None
     y = out.reshape(B, S, -1) @ p["wo"].to(dt)
-    if tp:
-        y = reduce_model(y, mesh)
-    return x + y, new_cache
+    return x + _seq_out(y, mesh, sp, tp), new_cache
 
 
 def _attend_tp(cfg: ModelConfig, q, k, v, window: int, mesh):
@@ -356,33 +393,35 @@ def whole_leaves(cfg: ModelConfig, mesh) -> frozenset:
                      + ("patch_proj",))
 
 
-def _swiglu(cfg, h, wg, wu, wd, mesh):
-    if mlp_tp(cfg, mesh):
-        return reduce_model(L.swiglu(to_model(h, mesh), wg, wu, wd), mesh)
-    return L.swiglu(h, wg, wu, wd)
+def _swiglu(cfg, h, wg, wu, wd, mesh, sp: bool = False):
+    split = mlp_tp(cfg, mesh)
+    return _seq_out(L.swiglu(_seq_in(h, mesh, sp, split), wg, wu, wd), mesh,
+                    sp, split)
 
 
-def _mlp_block(cfg: ModelConfig, p, x, mesh=None):
+def _mlp_block(cfg: ModelConfig, p, x, mesh=None, sp: bool = False):
     dt = x.dtype
-    h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    h = L.rms_norm(x, _norm_scale(p["mlp_norm"], mesh, sp), cfg.norm_eps)
     aux = 0.0                # no tensor (and no launch) unless moe
     if cfg.family == "moe":
-        y, aux = moe_lib.moe_ffn(cfg, p, h, mesh=mesh)
+        y, aux = moe_lib.moe_ffn(cfg, p, h, mesh=mesh, sp=sp)
         if cfg.shared_expert:
             y = y + _swiglu(cfg, h, p["se_wg"].to(dt), p["se_wu"].to(dt),
-                            p["se_wd"].to(dt), mesh)
+                            p["se_wd"].to(dt), mesh, sp)
     else:
         y = _swiglu(cfg, h, p["wg"].to(dt), p["wu"].to(dt), p["wd"].to(dt),
-                    mesh)
+                    mesh, sp)
     return x + y, aux
 
 
 def block(cfg: ModelConfig, p, x, window: int, *, mode, cache=None,
-          pos=None, mesh=None, kv: str = ""):
-    """-> (x, new cache, the layer's moe aux loss (0 unless moe))."""
+          pos=None, mesh=None, kv: str = "", sp: bool = False):
+    """-> (x, new cache, the layer's moe aux loss (0 unless moe)).  With
+    ``sp`` x is this rank's shard of the sequence, and so is the x
+    returned."""
     x, new_cache = _attn_block(cfg, p, x, window, mode=mode, cache=cache,
-                               pos=pos, mesh=mesh, kv=kv)
-    x, aux = _mlp_block(cfg, p, x, mesh=mesh)
+                               pos=pos, mesh=mesh, kv=kv, sp=sp)
+    x, aux = _mlp_block(cfg, p, x, mesh=mesh, sp=sp)
     return x, new_cache, aux
 
 
@@ -403,8 +442,24 @@ def _logits(cfg, params, x, mesh=None):
                             cfg.logit_softcap)
 
 
-def _train_block(cfg, p, x, window: int, mesh=None):
-    x, _, aux = block(cfg, p, x, window, mode="train", mesh=mesh)
+def _embed_shard(cfg, params, tokens, patches=None, mesh=None):
+    """(the training forward's embedded input, whether it is sequence
+    parallel): this rank's shard of the sequence where ``seq_parallel``
+    holds on S_total (the vocab-parallel lookup then ends in a
+    reduce-scatter over S, not an all-reduce), else the whole."""
+    vlm = cfg.family == "vlm" and patches is not None
+    S = tokens.shape[1] + (patches.shape[1] if vlm else 0)
+    sp = seq_parallel((tokens.shape[0], S, cfg.d_model), mesh)
+    vmesh = L.vocab_mesh(cfg, mesh)
+    if sp and vmesh is not None and not vlm:
+        return L.embed(params, tokens, compute_dtype(cfg), vmesh,
+                       seq=True), True
+    x = embed_tokens(cfg, params, tokens, patches, mesh)
+    return (seq_part(x, mesh) if sp else x), sp
+
+
+def _train_block(cfg, p, x, window: int, mesh=None, sp: bool = False):
+    x, _, aux = block(cfg, p, x, window, mode="train", mesh=mesh, sp=sp)
     return x, aux
 
 
@@ -414,15 +469,21 @@ def forward(cfg: ModelConfig, params, tokens, *, patches=None, mesh=None,
     the mean over layers, 0 unless moe).  S_total counts the prepended
     patches (vlm).  With ``return_hidden``, the final normed hidden
     (B, S_total, d) in place of the logits (the training loss takes the
-    chunked CE).  ``remat`` recomputes each layer in the backward."""
-    x = seq_shard(embed_tokens(cfg, params, tokens, patches, mesh), mesh)
+    chunked CE).  ``remat`` recomputes each layer in the backward.  Under
+    sequence parallelism (``_embed_shard``) each layer takes and returns
+    this rank's shard of the sequence (the reference's ``seq_shard``
+    after the embedding and after every layer), and the final normed
+    shard is gathered over S."""
+    x, sp = _embed_shard(cfg, params, tokens, patches, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, w in enumerate(layer_windows(cfg)):
         x, a = L.remat(remat, _train_block, cfg, layer(params["blocks"], l),
-                       x, int(w), mesh)
-        x = seq_shard(x, mesh)
+                       x, int(w), mesh, sp)
         aux = aux + a
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, _norm_scale(params["final_norm"], mesh, sp),
+                   cfg.norm_eps)
+    if sp:
+        x = gather_model(x, 1, mesh)
     aux = aux / max(cfg.n_layers, 1)
     if return_hidden:
         return x, aux

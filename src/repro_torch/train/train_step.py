@@ -26,9 +26,13 @@ serving steps take the cache where it lies (no gather of it).  A
 gradient is summed over the batch axes and cut back to its parameter's
 placement (a reduce-scatter over ``data``), and AdamW runs on the shards
 with the global norm summed over the ranks.  Micro-steps
-keep the reference's micro-batches (global rows ``[i B/m, (i+1) B/m)``);
-each rank weighs its rows of one by that micro-batch's global count of
-valid labels, so the loss is the reference's.  On a mesh of one rank no
+keep the reference's micro-batches (global rows ``[i B/m, (i+1) B/m)``),
+each split over the batch ranks as the reference's ``shard_map`` regions
+take it (a rank's B/(m n) rows of every micro-batch: the moe capacity
+counts the reference's tokens; the batch is gathered first), or, where
+the ranks do not divide a micro-batch, cut at its bounds; each rank
+weighs its rows of one by that micro-batch's global count of valid
+labels, so the loss is the reference's.  On a mesh of one rank no
 collective runs and the step is the unmeshed one, bit for bit.
 
 ``REPRO_CAST_PARAMS_ONCE=1`` casts the f32 matrices (leaves of 2 or
@@ -110,16 +114,31 @@ def _batch_ranks(mesh) -> tuple:
     return idx, n
 
 
-def _micro_pieces(rows: int, micro_steps: int, mesh):
-    """This rank's ``rows`` local rows cut at the reference's micro-batch
-    bounds (global rows ``[i B/m, (i+1) B/m)``): [(micro-batch, local
-    start, local stop)].  ``mesh`` None: the rows are the whole batch."""
+def _spread(batch_rows: int, micro_steps: int, mesh) -> bool:
+    """Whether each micro-batch splits evenly over the batch ranks (the
+    step then gathers the batch and each rank takes its share of every
+    micro-batch)."""
+    n = _batch_ranks(mesh)[1]
+    return (micro_steps > 1 and n > 1
+            and batch_rows % (micro_steps * n) == 0)
+
+
+def _micro_pieces(rows: int, micro_steps: int, mesh, spread: bool = False):
+    """This rank's rows of each of the reference's micro-batches (global
+    rows ``[i B/m, (i+1) B/m)``): [(micro-batch, start, stop)] in its
+    ``rows`` local rows, cut at the micro-batch bounds; with ``spread``
+    ``rows`` is the whole batch and the rank takes its ``1/n`` of every
+    micro-batch.  ``mesh`` None: the rows are the whole batch."""
     idx, n = _batch_ranks(mesh) if mesh is not None else (0, 1)
-    B = rows * n
+    B = rows if spread else rows * n
     if B % micro_steps:
         raise ValueError(f"batch {B} is not a multiple of {micro_steps} "
                          f"micro-steps")
     mb = B // micro_steps
+    if spread:
+        per = mb // n
+        return [(i, i * mb + idx * per, i * mb + (idx + 1) * per)
+                for i in range(micro_steps)], mb
     lo = idx * rows
     out = []
     for i in range(micro_steps):
@@ -131,7 +150,7 @@ def _micro_pieces(rows: int, micro_steps: int, mesh):
 
 def accumulate_grads(cfg, params, batch, *, micro_steps: int = 1,
                      cast_once: bool = False, mesh=None,
-                     split: bool = False) -> dict:
+                     split: bool = False, spread: bool = False) -> dict:
     """Backward of ``loss_fn`` into ``params``' ``.grad`` over
     ``micro_steps`` micro-batches, the sums divided by ``micro_steps``;
     the metrics, averaged over the micro-steps.  ``params`` must require
@@ -139,9 +158,11 @@ def accumulate_grads(cfg, params, batch, *, micro_steps: int = 1,
     working copies; with ``split`` the batch is this rank's shard of the
     batch axes' rows, each rank weighs its rows of a micro-batch by that
     micro-batch's global count of valid labels, and the metrics are
-    summed over the batch ranks, so the loss is the reference's."""
+    summed over the batch ranks, so the loss is the reference's.  With
+    ``spread`` the batch is the whole (gathered) batch and the rank's
+    rows are its share of every micro-batch (``_micro_pieces``)."""
     pieces, rows = _micro_pieces(batch["tokens"].shape[0], micro_steps,
-                                 mesh if split else None)
+                                 mesh if split else None, spread)
     whole = not split or _batch_ranks(mesh)[1] == 1   # pieces = micro-batches
     labels = batch["labels"]
     if not whole:
@@ -193,13 +214,14 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None,
         raise ValueError(f"global batch {shape.global_batch} is not a "
                          f"multiple of {micro_steps} micro-steps")
     cast_once = bool(os.environ.get("REPRO_CAST_PARAMS_ONCE"))
-    keeps, split, sharded = None, False, False
+    keeps, split, sharded, spread = None, False, False, False
     if mesh is not None:
         keeps = _keeps(cfg, M.param_defs(cfg), mesh)
         # a batch that the batch axes don't divide is replicated (the
         # reference's resolve_spec): every rank then runs all of it
         split = bool(_batch_shardings(cfg, shape, mesh)["tokens"].spec)
         sharded = any(axis_size(mesh, a) > 1 for a in axis_names(mesh))
+        spread = split and _spread(shape.global_batch, micro_steps, mesh)
 
     def train_step(params, opt_state, batch):
         work = _working(params, keeps)
@@ -209,9 +231,10 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None,
             leaf.grad = None
         try:
             metrics = accumulate_grads(
-                cfg, work, {k: _local(v) for k, v in batch.items()},
+                cfg, work, {k: gather_local(v) if spread else _local(v)
+                            for k, v in batch.items()},
                 micro_steps=micro_steps, cast_once=cast_once, mesh=mesh,
-                split=split)
+                split=split, spread=spread)
             grads = [leaf.grad for leaf in leaves]
             if keeps is not None:
                 grads = [reduce_to(g, like, keep, partial=split)

@@ -7,7 +7,8 @@ gloo ranks on two meshes, a second seed and in f32 against the plain
 version, (e) the d-HNSW step
 over 4 gloo ranks (its store cut to 8 partitions) against one rank, (f)
 every family's meshed serve steps over 4 and 8 gloo ranks against the
-unmeshed path."""
+unmeshed path, (g) the meshed train step sequence parallel over 4 gloo
+ranks against the unmeshed step."""
 import os
 import sys
 
@@ -53,3 +54,4 @@ def test_chip_smoke_mesh_phase_on_cpu(monkeypatch, capsys, one_thread):
     assert out.count("[19d moe shardmap]") == 4
     assert out.count("[19e d-HNSW step]") == 6
     assert out.count("[19f mesh ") == len(cs.MESH_FAMILIES)
+    assert out.count("[19g mesh sp]") == 1

@@ -354,6 +354,38 @@ def test_peak_extrapolation_matches_full_depth():
     assert p1 == p2 == full
 
 
+@pytest.mark.parametrize("arch", ["qwen3-8b", "pixtral-12b"])
+def test_sequence_parallel_saves_the_layer_inputs(arch, monkeypatch):
+    """Sequence parallelism keeps each layer's saved input as this rank's
+    S/tp shard: on the fake (2, 4) mesh a smoke train cell's peak
+    transient falls, with every layer added, by one layer input's
+    (tp - 1)/tp (B_loc S d bytes (tp - 1)/tp, S counting pixtral's
+    patches) against the step with sequence parallelism off, within one
+    layer's gathered input (B_loc S d bytes); at each depth the fall is
+    at least L such shares (the layer's own transient shrinks too: its
+    residual-stream tensors are shards)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import transformer as TF
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    shape, tp = SMALL["train"], 4
+
+    def fall(L):
+        cfg = smoke_config(arch).replace(n_layers=L)
+        on = TD.trace_cost(cfg, shape, mesh, peak_only=True)["peak"]
+        with monkeypatch.context() as m:
+            m.setattr(TF, "seq_parallel", lambda shape, mesh: False)
+            off = TD.trace_cost(cfg, shape, mesh, peak_only=True)["peak"]
+        return off - on, cfg
+    (f2, cfg), (f4, _) = fall(2), fall(4)
+    S = shape.seq_len + (cfg.n_patches if cfg.family == "vlm" else 0)
+    gathered = shape.global_batch // 2 * S * cfg.d_model * 2    # bf16
+    share = gathered * (tp - 1) / tp
+    print(arch, f2, f4, share, gathered)
+    assert abs((f4 - f2) - 2 * share) <= gathered
+    assert f2 >= 2 * share and f4 >= 4 * share
+
+
 NO_JAX = """
 import sys
 from torch.distributed.device_mesh import init_device_mesh

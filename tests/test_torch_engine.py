@@ -156,6 +156,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:\.|\s|$)",
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"

@@ -8,7 +8,15 @@ against the JAX package on four forced CPU devices (one subprocess):
   which its ``with_sharding_constraint`` refuses) within 1e-5 in f32, in
   one and two micro-steps; with the perf flags (``REPRO_CAST_PARAMS_ONCE``,
   ``REPRO_LOSS_UNEMBED_TP``, ``REPRO_SHARDED_CE``) on and off in bf16 the
-  losses agree within 1e-4;
+  losses agree within 1e-4; the step ran sequence parallel (the
+  reference's ``seq_shard``: each layer's input gathered over S on
+  ``model``, counted by ``CollectiveCounter``), and with sequence
+  parallelism switched off it gives the same loss within 1e-6;
+* the smoke qwen3-moe and pixtral train steps (f32, S = 256, pixtral's
+  4 patches prepended) against the reference's meshed steps, in one and
+  two micro-steps;
+* a sequence that ``model`` does not divide (S = 255): no sequence
+  collective, bit-equal to the step with sequence parallelism off;
 * ``moe._moe_shardmap`` (the smoke qwen3-moe layer, f32) against the
   reference's ``shard_map`` path;
 * ``reshard_tree`` / ``rescale_train_state`` from (2, 2) to (4, 1): every
@@ -34,6 +42,8 @@ from repro_torch.data.synthetic import sift_like  # noqa: E402
 
 WORLD = 4
 SEQ, BATCH, VOCAB = 1024, 8, 512
+FAM_SEQ = 256                 # the moe and vlm steps' sequence
+FAMILIES = ("qwen3-moe-30b-a3b", "pixtral-12b")
 MOE_X = (4, 64, 64)           # (B, S, d) of the moe layer's input
 LOSS_TOL, FLAGS_TOL = 1e-5, 1e-4
 
@@ -84,6 +94,28 @@ for name, dtype, micro, flags in (("f32_m1", "float32", 1, False),
     out[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
 for f in FLAGS:
     os.environ.pop(f, None)
+for i, arch in enumerate(%(families)r):
+    cfg = smoke_config(arch).replace(dtype="float32")
+    fp = init_params(M.param_defs(cfg), jax.random.key(2 + i))
+    rng = np.random.default_rng(2 + i)
+    fb = {k: rng.integers(0, cfg.vocab_size, (%(batch)d, %(fam_seq)d)
+                          ).astype(np.int32) for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        fb["patches"] = rng.standard_normal(
+            (%(batch)d, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    flat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(fp)[0]}
+    np.savez(f"{tmp}/params_{arch}.npz", **flat,
+             **{"batch_" + k: v for k, v in fb.items()})
+    for micro in (1, 2):
+        shape = InputShape("t", %(fam_seq)d, %(batch)d, "train")
+        step, in_sh, out_sh, _ = make_train_step(cfg, shape, mesh,
+                                                 micro_steps=micro)
+        with mesh:
+            _, _, m = jax.jit(step, in_shardings=in_sh, out_shardings=out_sh)(
+                fp, adamw.init(fp), {k: jnp.asarray(v) for k, v in fb.items()})
+        out[f"{arch}_m{micro}"] = {"loss": float(m["loss"]),
+                                   "grad_norm": float(m["grad_norm"])}
 mcfg = smoke_config("qwen3-moe-30b-a3b").replace(dtype="float32")
 mp = init_params(MOE.moe_param_defs(mcfg, (), ()), jax.random.key(1))
 x = np.random.default_rng(1).standard_normal(%(moe_x)r).astype(np.float32)
@@ -92,7 +124,8 @@ with mesh:
 np.savez(f"{tmp}/moe.npz", x=x, y=np.asarray(y),
          **{k: np.asarray(v) for k, v in mp.items()})
 print("JSON " + json.dumps(out))
-""" % {"vocab": VOCAB, "batch": BATCH, "seq": SEQ, "moe_x": MOE_X}
+""" % {"vocab": VOCAB, "batch": BATCH, "seq": SEQ, "moe_x": MOE_X,
+       "families": FAMILIES, "fam_seq": FAM_SEQ}
 
 RANK = r"""
 import json, os, sys
@@ -107,9 +140,11 @@ from repro_torch import tree as T
 from repro_torch.configs.base import InputShape
 from repro_torch.configs.registry import smoke_config
 from repro_torch.core.distributed import ShardedStore
+from repro_torch.core.mesh import CollectiveCounter
 from repro_torch.core.layout import LayoutSpec, Store
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import transformer as TF
 from repro_torch.models.params import (P, NamedSharding, gather_local,
                                        local_part, param_shardings,
                                        placements, shard_tensor)
@@ -120,31 +155,61 @@ a = np.load(f"{tmp}/params.npz")
 base = smoke_config("qwen3-8b").replace(vocab_size=%(vocab)d)
 
 
-def tree_of(prefix=""):
+def tree_of(arrays=None):
+    arrays = a if arrays is None else arrays
     out = {}
-    for k in a.files:
+    for k in arrays.files:
         if k.startswith("batch_"):
             continue
         node = out
         parts = k.split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = torch.from_numpy(a[k].copy())
+        node[parts[-1]] = torch.from_numpy(arrays[k].copy())
     return out
 
 
-def state(cfg, mesh):
+def state(cfg, mesh, arrays=None, seq=%(seq)d):
+    arrays = a if arrays is None else arrays
     _, (p_sh, o_sh, b_sh), _, _ = TS.make_step(
-        cfg, InputShape("t", %(seq)d, %(batch)d, "train"), mesh)
-    p = T.tree_map(shard_tensor, tree_of(), p_sh)
-    zeros = T.tree_map(lambda t: torch.zeros(t.shape), tree_of())
+        cfg, InputShape("t", seq, %(batch)d, "train"), mesh)
+    p = T.tree_map(shard_tensor, tree_of(arrays), p_sh)
+    zeros = T.tree_map(lambda t: torch.zeros(t.shape), tree_of(arrays))
     opt = adamw.AdamWState(shard_tensor(torch.zeros((), dtype=torch.int32),
                                         o_sh.step),
                            T.tree_map(shard_tensor, zeros, o_sh.m),
                            T.tree_map(shard_tensor, zeros, o_sh.v))
-    b = {k: shard_tensor(torch.from_numpy(a["batch_" + k]), b_sh[k])
-         for k in ("tokens", "labels")}
+    b = {k: shard_tensor(torch.from_numpy(arrays["batch_" + k][:, :seq]
+                                          if k != "patches"
+                                          else arrays["batch_" + k]), b_sh[k])
+         for k in b_sh}
     return p, opt, b
+
+
+def seq_gathers(ops, shard_bytes):
+    # the all-gathers over the 2 model ranks of a (B_loc, S/2, d) f32
+    # sequence shard
+    return sum(1 for kind, nbytes, g in ops
+               if kind == "all-gather" and g == 2 and nbytes == shard_bytes)
+
+
+def run_step(cfg, micro, arrays=None, seq=%(seq)d, sp=True):
+    # (metrics, the collectives counted) of one meshed step
+    step, _, _, _ = TS.make_step(
+        cfg, InputShape("t", seq, %(batch)d, "train"), mesh,
+        micro_steps=micro)
+    p, opt, b = state(cfg, mesh, arrays, seq)
+    keep = TF.seq_parallel
+    if not sp:
+        TF.seq_parallel = lambda shape, mesh: False
+    try:
+        with CollectiveCounter() as cc:
+            p, opt, m = step(p, opt, b)
+    finally:
+        TF.seq_parallel = keep
+    res = {k: float(v) for k, v in m.items()}
+    res["step"] = int(opt.step.to_local())
+    return res, cc.ops
 
 
 out = {}
@@ -159,15 +224,46 @@ for name, dtype, micro, flags in (("f32_m1", "float32", 1, False),
         if flags:
             os.environ[f] = "1"
     cfg = base.replace(dtype=dtype)
-    step, _, _, _ = TS.make_step(
-        cfg, InputShape("t", %(seq)d, %(batch)d, "train"), mesh,
-        micro_steps=micro)
-    p, opt, b = state(cfg, mesh)
-    p, opt, m = step(p, opt, b)
-    out[name] = {k: float(v) for k, v in m.items()}
-    out[name]["step"] = int(opt.step.to_local())
+    out[name], ops = run_step(cfg, micro)
+    if name == "f32_m1":
+        # (B_loc, S/tp, d) f32 over model: 4 x 512 x 64 x 4 bytes
+        shard = %(batch)d // 2 * %(seq)d // 2 * cfg.d_model * 4
+        out["seq_gathers"] = seq_gathers(ops, shard)
+        out["f32_m1_no_sp"], _ = run_step(cfg, 1, sp=False)
+        # S = 255: model (2) does not divide it, so no sequence collective
+        odd = 255
+        out["odd"], ops = run_step(cfg, 1, seq=odd)
+        out["odd_seq_gathers"] = sum(
+            1 for kind, nbytes, g in ops if kind == "all-gather" and g == 2
+            and nbytes %% (%(batch)d // 2 * cfg.d_model * 4) == 0
+            and nbytes // (%(batch)d // 2 * cfg.d_model * 4) in (odd // 2,
+                                                               odd))
+        out["odd_no_sp"], _ = run_step(cfg, 1, seq=odd, sp=False)
 for f in FLAGS:
     os.environ.pop(f, None)
+
+# the moe and vlm families' meshed train steps on the reference's params
+for arch in %(families)r:
+    fa = np.load(f"{tmp}/params_{arch}.npz")
+    fcfg = smoke_config(arch).replace(dtype="float32")
+    for micro in (1, 2):
+        out[f"{arch}_m{micro}"], ops = run_step(fcfg, micro, fa,
+                                                seq=%(fam_seq)d)
+        # a rank's rows of a micro-batch: B / micro over the 2 data ranks
+        S = %(fam_seq)d + (fcfg.n_patches if fcfg.family == "vlm" else 0)
+        out[f"{arch}_m{micro}"]["seq_gathers"] = seq_gathers(
+            ops, %(batch)d // micro // 2 * S // 2 * fcfg.d_model * 4)
+
+# seq_shard: the reference's condition, this rank's S/2 shard where it holds
+from repro_torch.models.params import seq_shard
+x = torch.arange(2 * 6 * 3, dtype=torch.float32).reshape(2, 6, 3)
+m1 = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
+mi = mesh.get_local_rank("model")
+out["seq_shard_ok"] = bool(
+    torch.equal(seq_shard(x, mesh), x[:, 3 * mi:3 * mi + 3])
+    and seq_shard(x[:, :5], mesh).shape == (2, 5, 3)   # 2 does not divide 5
+    and seq_shard(x[0], mesh).shape == (6, 3)              # ndim < 3
+    and seq_shard(x, None) is x and seq_shard(x, m1) is x)  # no mesh, tp 1
 
 # moe: this rank's batch shard through the expert-parallel path
 mz = np.load(f"{tmp}/moe.npz")
@@ -244,7 +340,8 @@ out["fetch_ok"] = bool(np.array_equal(g.numpy(), store.graph_buf[s["ids"]])
 with open(f"{tmp}/rank{rank}.json", "w") as f:
     json.dump(out, f)
 dist.destroy_process_group()
-""" % {"world": WORLD, "vocab": VOCAB, "batch": BATCH, "seq": SEQ}
+""" % {"world": WORLD, "vocab": VOCAB, "batch": BATCH, "seq": SEQ,
+       "families": FAMILIES, "fam_seq": FAM_SEQ}
 
 
 def _env():
@@ -308,6 +405,59 @@ def test_meshed_train_step_matches_reference(runs, name):
         assert abs(r[name]["loss"] - want[name]["loss"]) <= LOSS_TOL, (
             r[name], want[name])
         assert r[name]["loss"] == got[0][name]["loss"]
+        assert abs(r[name]["grad_norm"] - want[name]["grad_norm"]) <= (
+            1e-4 * max(1.0, want[name]["grad_norm"]))
+        assert r[name]["step"] == 1
+
+
+def test_meshed_train_step_is_sequence_parallel(runs):
+    """The (2, 2) step gathered every layer's input over S on ``model``
+    (two sequence all-gathers a layer in the forward, two more in its
+    recompute), on every rank; with sequence parallelism switched off
+    the loss and grad norm agree within 1e-6 (the sums over ``model`` run
+    in another order)."""
+    _, got, _, _ = runs
+    for r in got:
+        assert r["seq_gathers"] >= 2 * 2, r["seq_gathers"]
+        assert abs(r["f32_m1"]["loss"] - r["f32_m1_no_sp"]["loss"]) <= 1e-6
+        assert abs(r["f32_m1"]["grad_norm"]
+                   - r["f32_m1_no_sp"]["grad_norm"]) <= (
+            1e-6 * r["f32_m1_no_sp"]["grad_norm"])
+
+
+def test_seq_shard_follows_the_reference_condition(runs):
+    """``params.seq_shard``: this rank's S/tp shard of a (B, S, d)
+    tensor on a model axis of 2; the tensor itself where 2 does not
+    divide S, where it has fewer than 3 dims, without a mesh and on a
+    model axis of 1 (``src/repro/models/params.py:109-122``)."""
+    _, got, _, _ = runs
+    assert all(r["seq_shard_ok"] for r in got)
+
+
+def test_sequence_model_does_not_divide(runs):
+    """S = 255 on a model axis of 2: the reference's ``seq_shard``
+    leaves the stream whole, so the step runs no sequence collective and
+    equals the step with sequence parallelism off bit for bit."""
+    _, got, _, _ = runs
+    for r in got:
+        assert r["odd_seq_gathers"] == 0
+        assert r["odd"] == r["odd_no_sp"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("micro", [1, 2])
+def test_family_train_step_matches_reference(runs, arch, micro):
+    """The smoke qwen3-moe (expert parallel, its capacity on the gathered
+    sequence) and pixtral (4 patches prepended: S_total 260) meshed train
+    steps, sequence parallel, on the reference's params: f32 loss within
+    1e-5 and grad norm within 1e-4 (relative) of the reference's meshed
+    step on the same (2, 2) mesh."""
+    want, got, _, _ = runs
+    name = f"{arch}_m{micro}"
+    print(name, want[name], [r[name] for r in got])
+    for r in got:
+        assert r[name]["seq_gathers"] > 0
+        assert abs(r[name]["loss"] - want[name]["loss"]) <= LOSS_TOL
         assert abs(r[name]["grad_norm"] - want[name]["grad_norm"]) <= (
             1e-4 * max(1.0, want[name]["grad_norm"]))
         assert r[name]["step"] == 1
