@@ -17,6 +17,10 @@ Kept from the reference on purpose:
 ``write_slots``, ``write_slots_quant`` and the overflow-append twins
 (``overflow_append``, ``overflow_append_quant``) update their tensors in
 place (the reference returns new arrays and donates the old ones).
+
+With the tracer on, a serve round's work is split into spans: one
+``compute.serve.decode`` and one ``compute.serve.walk`` (the per-pair
+walk or scan) a pair chunk, and one ``compute.serve.merge`` a call.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from repro_torch.core import search as S
 from repro_torch.core.layout import (LayoutSpec, MT_BLK_START, MT_ENTRY,
                                      MT_N_BASE, MT_OV_A, MT_OV_B, MT_SIDE)
+from repro_torch.obs.trace import TRACER
 
 # pairs decoded at once in serve_and_merge: bounds the (pairs, rows, D)
 # temporaries of a large round (~1 MB of f32 vectors per pair at the
@@ -140,19 +145,22 @@ def serve_and_merge(spec: LayoutSpec, cache_g, cache_v, meta_table, queries,
     ds, gs = [], []
     for c0 in range(0, pair_qi.shape[0], PAIR_CHUNK):
         sl = slice(c0, c0 + PAIR_CHUNK)
-        slots = pair_slots[sl].long()
-        rows = meta_table[pair_pids[sl].long()]
-        qs = queries[pair_qi[sl].long().clamp(max=B - 1)]
-        part = decode_span(spec, cache_g[slots], cache_v[slots], rows)
-        if mode == "graph":
-            d, g = search_decoded_graph(part, qs, k, ef)
-        else:
-            d, g = search_decoded_scan(part, qs, k)
+        with TRACER.span("compute.serve.decode", tier="compute"):
+            slots = pair_slots[sl].long()
+            rows = meta_table[pair_pids[sl].long()]
+            qs = queries[pair_qi[sl].long().clamp(max=B - 1)]
+            part = decode_span(spec, cache_g[slots], cache_v[slots], rows)
+        with TRACER.span("compute.serve.walk", tier="compute"):
+            if mode == "graph":
+                d, g = search_decoded_graph(part, qs, k, ef)
+            else:
+                d, g = search_decoded_scan(part, qs, k)
         ok = pair_valid[sl][:, None]
         ds.append(torch.where(ok, d, S.INF))
         gs.append(torch.where(ok, g, -1))
-    return merge_ranked(run_d, run_g, pair_qi, pair_ranks, torch.cat(ds),
-                        torch.cat(gs), n_lanes=n_lanes)
+    with TRACER.span("compute.serve.merge", tier="compute"):
+        return merge_ranked(run_d, run_g, pair_qi, pair_ranks,
+                            torch.cat(ds), torch.cat(gs), n_lanes=n_lanes)
 
 
 def merge_ranked(run_d, run_g, pair_qi, pair_ranks, d, g, *, n_lanes: int):
@@ -278,16 +286,18 @@ def serve_quant_pool(spec: LayoutSpec, cache_qg, cache_qv, cache_qs,
     ds, ps = [], []
     for c0 in range(0, pair_qi.shape[0], PAIR_CHUNK):
         sl = slice(c0, c0 + PAIR_CHUNK)
-        slots = pair_slots[sl].long()
-        pids = pair_pids[sl]
-        qs = queries[pair_qi[sl].long().clamp(max=B - 1)]
-        part, rows = decode_quant_span(spec, cache_qg[slots], cache_qv[slots],
-                                       cache_qs[slots],
-                                       meta_table[pids.long()])
-        if mode == "graph":
-            d, li = search_decoded_graph_local(part, qs, m, ef)
-        else:
-            d, li = search_decoded_scan_local(part, qs, m)
+        with TRACER.span("compute.serve.decode", tier="compute"):
+            slots = pair_slots[sl].long()
+            pids = pair_pids[sl]
+            qs = queries[pair_qi[sl].long().clamp(max=B - 1)]
+            part, rows = decode_quant_span(spec, cache_qg[slots],
+                                           cache_qv[slots], cache_qs[slots],
+                                           meta_table[pids.long()])
+        with TRACER.span("compute.serve.walk", tier="compute"):
+            if mode == "graph":
+                d, li = search_decoded_graph_local(part, qs, m, ef)
+            else:
+                d, li = search_decoded_scan_local(part, qs, m)
         live = (li >= 0) & pair_valid[sl][:, None] & torch.isfinite(d)
         safe = li.long().clamp(0, part.gids.shape[1] - 1)
         payload = torch.stack([part.gids.gather(1, safe),
@@ -296,8 +306,10 @@ def serve_quant_pool(spec: LayoutSpec, cache_qg, cache_qv, cache_qs,
                               dim=-1).to(torch.int32)
         ds.append(torch.where(live, d, S.INF))
         ps.append(torch.where(live[:, :, None], payload, -1))
-    return merge_ranked_payload(pool_d, pool_p, pair_qi, pair_ranks,
-                                torch.cat(ds), torch.cat(ps), n_lanes=n_lanes)
+    with TRACER.span("compute.serve.merge", tier="compute"):
+        return merge_ranked_payload(pool_d, pool_p, pair_qi, pair_ranks,
+                                    torch.cat(ds), torch.cat(ps),
+                                    n_lanes=n_lanes)
 
 
 # ------------------------------------------------ rows and cache slots

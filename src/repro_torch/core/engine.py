@@ -213,10 +213,9 @@ class DHNSWEngine:
 
     def search(self, queries: np.ndarray, k: int = 10,
                ef: Optional[int] = None, b: Optional[int] = None):
-        """Batched top-k.  Returns (dists (B,k), gids (B,k), stats)."""
-        with TRACER.span("compute.search", tier="compute", k=int(k),
-                         quant=self.cfg.quant):
-            return self.client.search(queries, k=k, ef=ef, b=b)
+        """Batched top-k.  Returns (dists (B,k), gids (B,k), stats); the
+        client opens the ``compute.search`` span."""
+        return self.client.search(queries, k=k, ef=ef, b=b)
 
     def insert(self, vecs: np.ndarray) -> np.ndarray:
         """Dynamic insertion (paper §3.2) through the pool WRITE verb."""

@@ -353,6 +353,19 @@ def partition_gids(store: Store, pid: int) -> np.ndarray:
     return gids[: int(row[MT_N_BASE])].copy()
 
 
+def partition_row_bytes(store: Store, pids) -> int:
+    """The bytes the rows of partitions ``pids`` hold in the region: each
+    base row's graph entry (``deg`` neighbours and its global id, int32)
+    and vector (float32), and each overflow row in use in its group
+    (global id and vector).  Not the padding of a span to ``np_max`` nor
+    the empty overflow slots."""
+    spec = store.spec
+    mt = store.meta_table[np.asarray(pids).reshape(-1)].astype(np.int64)
+    row = spec.dim * 4
+    return int((mt[:, MT_N_BASE] * ((spec.deg + 1) * 4 + row)
+                + (mt[:, MT_OV_A] + mt[:, MT_OV_B]) * (4 + row)).sum())
+
+
 def overflow_gids(store: Store, pid: int) -> np.ndarray:
     """Global ids of ``pid``'s live overflow inserts (its side only)."""
     spec = store.spec

@@ -22,12 +22,19 @@ partition's adjacency after an insert can decode one: the overflow
 slot's gid written into the span's graph block) is clamped to the last
 node where it is read (its vector, its row, its visited bit) and
 dropped where the visited bitmap is written.
+
+With the tracer on, every beam step and descent hop counts one
+``walk_steps`` (``route_steps`` for the meta-HNSW), and each loop's
+``bool(active.any())``, the host's one wait for the card a step, is
+timed as a host sync (site ``walk``, ``route``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.obs.trace import TRACER
 
 INF = float("inf")
 
@@ -72,16 +79,23 @@ def _entry_dist(vectors, q, entry):
 
 
 def greedy_descent(vectors, adjacency, q, entry, n_levels: int,
-                   max_hops: int = 64):
+                   max_hops: int = 64, *, steps: str = "walk_steps",
+                   site: str = "walk"):
     """Layers top..1: hill-climb each lane to its locally closest node.
-    q (B, D), entry (B,) -> (node (B,), dist (B,))."""
+    q (B, D), entry (B,) -> (node (B,), dist (B,)).  ``steps`` / ``site``:
+    the tracer's names for the hops and the per-hop sync."""
     u = entry.long()
     du = _entry_dist(vectors, q, u)
     for l_rev in range(n_levels - 1):
         adj = _layer(adjacency, n_levels - 1 - l_rev)   # top .. 1
         active = torch.ones_like(u, dtype=torch.bool)
         hops = 0
-        while hops < max_hops and bool(active.any()):
+        while hops < max_hops:
+            with TRACER.wait(site):
+                go = bool(active.any())
+            if not go:
+                break
+            TRACER.count(steps)
             nbrs = _neighbours(adj, u)
             d = _sq_dists(vectors, nbrs, q)
             j = torch.argmin(d, dim=1, keepdim=True)
@@ -96,9 +110,11 @@ def greedy_descent(vectors, adjacency, q, entry, n_levels: int,
 
 def batched_beam_search(vectors, adjacency, queries, entry, *, ef: int,
                         n_levels: int = 1, max_iters: Optional[int] = None,
-                        visited_size: Optional[int] = None):
+                        visited_size: Optional[int] = None,
+                        steps: str = "walk_steps", site: str = "walk"):
     """Full HNSW query for a batch: queries (B, D) -> (B, ef) dists/ids,
-    ascending, inf/-1 padded.  ``entry`` is an int or (B,)."""
+    ascending, inf/-1 padded.  ``entry`` is an int or (B,).  ``steps`` /
+    ``site``: the tracer's names for the steps and the per-step sync."""
     B = queries.shape[0]
     dev = queries.device
     n = vectors.shape[-2] if visited_size is None else visited_size
@@ -108,7 +124,8 @@ def batched_beam_search(vectors, adjacency, queries, entry, *, ef: int,
     lanes = torch.arange(B, device=dev)
     adj0 = _layer(adjacency, 0)
 
-    ep, dep = greedy_descent(vectors, adjacency, queries, entry, n_levels)
+    ep, dep = greedy_descent(vectors, adjacency, queries, entry, n_levels,
+                             steps=steps, site=site)
     beam_d = torch.full((B, ef), INF, dtype=torch.float32, device=dev)
     beam_d[:, 0] = dep
     beam_i = torch.full((B, ef), -1, dtype=torch.long, device=dev)
@@ -125,8 +142,11 @@ def batched_beam_search(vectors, adjacency, queries, entry, *, ef: int,
         best_un = cand.min(dim=1).values
         worst = torch.where(live, beam_d, -INF).max(dim=1).values
         active = torch.isfinite(best_un) & (best_un <= worst)
-        if not bool(active.any()):
+        with TRACER.wait(site):
+            go = bool(active.any())
+        if not go:
             break
+        TRACER.count(steps)
         pos = torch.argmin(cand, dim=1, keepdim=True)
         u = beam_i.gather(1, pos)[:, 0].clamp(min=0)
         exp_new = expanded.scatter(1, pos, True)
@@ -170,7 +190,8 @@ def meta_route(meta_vectors, meta_adjacency, queries, entry, *, b: int,
     and their distances."""
     ef = max(ef, 2 * b, 8)
     d, i = batched_beam_search(meta_vectors, meta_adjacency, queries, entry,
-                               ef=ef, n_levels=n_levels)
+                               ef=ef, n_levels=n_levels, steps="route_steps",
+                               site="route")
     return i[:, :b].to(torch.int32), d[:, :b]
 
 

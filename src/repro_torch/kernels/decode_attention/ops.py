@@ -190,10 +190,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not TRACER.enabled:
         return fn(q, k, v, pos, partial)
     B, H, hd = q.shape
-    with TRACER.span("kernel.decode_attention", tier="kernel", impl=impl,
-                     B=int(B), H=int(H), K=int(k.shape[2]), S=int(k.shape[1]),
-                     hd=int(hd)):
-        out = fn(q, k, v, pos, partial)
-        if impl == "cuda":
-            torch.cuda.synchronize(q.device)
-        return out
+    with TRACER.device_span("kernel.decode_attention", q.device,
+                            tier="kernel", impl=impl, B=int(B), H=int(H),
+                            K=int(k.shape[2]), S=int(k.shape[1]),
+                            hd=int(hd)):
+        return fn(q, k, v, pos, partial)

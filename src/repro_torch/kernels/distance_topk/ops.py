@@ -109,10 +109,7 @@ def distance_topk(queries: torch.Tensor, database: torch.Tensor, k: int,
     x = database.to(torch.float32).contiguous()
     if not TRACER.enabled:
         return fn(q, x, k, nv)
-    with TRACER.span("kernel.distance_topk", tier="kernel", impl=impl,
-                     B=int(q.shape[0]), N=int(N), D=int(q.shape[1]),
-                     k=int(k)):
-        out = fn(q, x, k, nv)
-        if impl == "cuda":
-            torch.cuda.synchronize(q.device)
-        return out
+    with TRACER.device_span("kernel.distance_topk", q.device, tier="kernel",
+                            impl=impl, B=int(q.shape[0]), N=int(N),
+                            D=int(q.shape[1]), k=int(k)):
+        return fn(q, x, k, nv)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_blocks.ref import gather_spans_ref
+from repro_torch.obs.trace import TRACER
 
 launches = 0
 MAX_BUFS = 3
@@ -85,7 +86,9 @@ def gather_spans(bufs, block_ids: torch.Tensor) -> list:
         bad = flag(ids.device)
         _launch(bufs, ids, outs, bad)
         launches += 1
-        if bad.item():
+        with TRACER.wait("gather_check"):
+            out_of_range = bad.item()
+        if out_of_range:
             bad.zero_()
             raise IndexError(f"gather_spans: a block id is outside "
                              f"[0, n_blocks) of a buffer "

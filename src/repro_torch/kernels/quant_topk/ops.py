@@ -317,10 +317,8 @@ def quant_topk(queries: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"quant_topk: unsupported device {queries.device}")
     if not TRACER.enabled:
         return fn(queries, codes, scales, k, group, nv)
-    with TRACER.span("kernel.quant_topk", tier="kernel", impl=impl,
-                     B=int(queries.shape[0]), N=int(N),
-                     D=int(codes.shape[1]), k=int(k)):
-        out = fn(queries, codes, scales, k, group, nv)
-        if impl == "cuda":
-            torch.cuda.synchronize(queries.device)
-        return out
+    with TRACER.device_span("kernel.quant_topk", queries.device,
+                            tier="kernel", impl=impl,
+                            B=int(queries.shape[0]), N=int(N),
+                            D=int(codes.shape[1]), k=int(k)):
+        return fn(queries, codes, scales, k, group, nv)

@@ -176,7 +176,8 @@ class RemotePool(MemoryPool):
     def _up(self, a: np.ndarray) -> torch.Tensor:
         """One host -> device upload of a decoded response (or the meta
         table): the compute side's copy of what crossed the wire."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        with TRACER.wait("upload"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _fail(self, e: Exception):
         self.close()
@@ -451,8 +452,9 @@ class RemotePool(MemoryPool):
         redundant wire bytes."""
         # a row tensor on the card comes to the host once: the verb's one
         # host sync
-        rows_h = (rows.cpu().numpy() if isinstance(rows, torch.Tensor)
-                  else np.asarray(rows))
+        with TRACER.wait("readback"):
+            rows_h = (rows.cpu().numpy() if isinstance(rows, torch.Tensor)
+                      else np.asarray(rows))
         safe = np.maximum(rows_h.astype(np.int64), 0)
         uniq, inv = np.unique(safe, return_inverse=True)
         if uniq.size == 0:                 # nothing to fetch, no frame

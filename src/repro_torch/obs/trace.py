@@ -24,7 +24,9 @@ server-side spans) are attached with :meth:`Tracer.add` /
 
 Tiers are free-form strings; the conventional taxonomy is documented in
 ``docs/observability.md`` (serve / compute / pool / net / server / kernel
-/ bench).
+/ bench), and what this package adds to it (child spans, counters, host
+waits, ``device_s``, the clock offset, the cost of tracing) in
+``docs/torch_observability.md``.
 
 Tail-based sampling
 -------------------
@@ -42,6 +44,30 @@ attrs (``marked`` / ``error`` / ``latency`` / ``warmup``); ``kept`` and
 ``discarded`` count root decisions and :meth:`Tracer.health` exposes
 them next to ring occupancy, so the ring holds the p99 outliers instead
 of the last N requests and silent span loss stays visible.
+
+Counters and waits
+------------------
+:meth:`Tracer.count` adds to a named counter of the innermost open
+``with`` span on the thread; :meth:`Tracer.wait` times a block in which
+the host waits for the device (a readback, a blocking upload, a
+synchronize) and counts it as ``host_syncs`` / ``sync_wait_s`` (and per
+site, ``host_syncs.<site>`` / ``sync_wait_s.<site>``).  When a span
+closes its counters land in its ``attrs`` and are added to the enclosing
+span's, so a root span holds the totals of its whole tree.  With no open
+span a count is dropped.
+
+Device time and the clock
+-------------------------
+:meth:`Tracer.device_span` is a span that also records a pair of CUDA
+events on the device's current stream around its body; nothing waits on
+them while the program runs.  :meth:`Tracer.snapshot` resolves each
+pair the device has already passed into ``attrs["device_s"]`` and leaves
+the others pending, so a snapshot (a metrics scrape) never waits for the
+device; :meth:`Tracer.save` waits for every pair.  ``configure`` records
+``clock_offset_ns``, the wall clock (``time.time_ns``, which
+``torch.profiler`` stamps in) minus ``perf_counter`` (the spans' ``t0``),
+so a saved trace sits on a profiler's timeline without a second
+estimate; ``save`` writes it under ``otherData``.
 """
 
 from __future__ import annotations
@@ -83,7 +109,8 @@ _NULL = _NullSpan()
 class _Span:
     """Live span context manager; records itself into the tracer on exit."""
 
-    __slots__ = ("_tracer", "name", "tier", "attrs", "t0", "span_id", "parent_id")
+    __slots__ = ("_tracer", "name", "tier", "attrs", "t0", "span_id",
+                 "parent_id", "counts", "outer")
 
     def __init__(self, tracer: "Tracer", name: str, tier: str, attrs: Dict[str, Any]):
         """Bind the span to *tracer*; nothing is recorded until ``__exit__``."""
@@ -94,13 +121,17 @@ class _Span:
         self.t0 = 0.0
         self.span_id = 0
         self.parent_id = 0
+        self.counts: Dict[str, float] = {}
+        self.outer: Optional["_Span"] = None
 
     def __enter__(self) -> "_Span":
         """Allocate an id, push onto the thread's parent stack, start the clock."""
         tr = self._tracer
         self.parent_id = tr._current_id()
+        self.outer = getattr(tr._tls, "open", None)
         self.span_id = next(tr._ids)
         tr._tls.span_id = self.span_id
+        tr._tls.open = self
         self.t0 = time.perf_counter()
         return self
 
@@ -110,11 +141,78 @@ class _Span:
         return self
 
     def __exit__(self, *exc: object) -> bool:
-        """Stop the clock, pop the parent stack, and record the span."""
+        """Stop the clock, pop the parent stack, roll the counters up into
+        the enclosing span, and record the span."""
         dur = time.perf_counter() - self.t0
         tr = self._tracer
         tr._tls.span_id = self.parent_id
+        tr._tls.open = self.outer
+        if self.counts:
+            self.attrs.update(self.counts)
+            if self.outer is not None:
+                _add_counts(self.outer.counts, self.counts)
         tr._record(self.name, self.tier, self.t0, dur, self.span_id, self.parent_id, self.attrs)
+        return False
+
+
+def _add_counts(into: Dict[str, float], counts: Dict[str, float]) -> None:
+    for key, n in counts.items():
+        into[key] = into.get(key, 0) + n
+
+
+class _DeviceSpan(_Span):
+    """A span that also brackets its body with two CUDA events on the
+    device's current stream (none on the CPU); ``Tracer.snapshot``
+    resolves them into ``attrs["device_s"]``."""
+
+    __slots__ = ("_device", "_start")
+
+    def __init__(self, tracer: "Tracer", name: str, tier: str,
+                 attrs: Dict[str, Any], device: Any):
+        super().__init__(tracer, name, tier, attrs)
+        self._device = device
+        self._start = None
+
+    def __enter__(self) -> "_DeviceSpan":
+        super().__enter__()
+        if self._device.type == "cuda":
+            import torch
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self._device))
+        return self
+
+    def __exit__(self, *exc: object) -> bool:
+        if self._start is not None:
+            import torch
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self._device))
+            self._tracer._pending.append((self.attrs, self._start, end))
+        return super().__exit__(*exc)
+
+
+class _Wait:
+    """Times one block in which the host waits for the device and counts
+    it in the innermost open span (see ``Tracer.wait``)."""
+
+    __slots__ = ("_tracer", "site", "t0")
+
+    def __init__(self, tracer: "Tracer", site: str):
+        self._tracer = tracer
+        self.site = site
+        self.t0 = 0.0
+
+    def __enter__(self) -> "_Wait":
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc: object) -> bool:
+        dt = time.perf_counter() - self.t0
+        sp = getattr(self._tracer._tls, "open", None)
+        if sp is not None:
+            _add_counts(sp.counts, {
+                "host_syncs": 1, "sync_wait_s": dt,
+                "host_syncs." + self.site: 1,
+                "sync_wait_s." + self.site: dt})
         return False
 
 
@@ -139,6 +237,8 @@ class Tracer:
         self._tids: Dict[int, int] = {}
         self._lock = threading.Lock()
         self._phase: Optional[str] = None
+        self._pending: deque = deque(maxlen=self.capacity)
+        self.clock_offset_ns = 0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -177,6 +277,8 @@ class Tracer:
             self._root_durs = deque(maxlen=self.tail_window)
             self._tls = threading.local()
             self._phase = None
+            self._pending = deque(maxlen=self.capacity)
+            self.clock_offset_ns = wall_offset_ns()
             if trace_id is not None:
                 self.trace_id = int(trace_id)
             elif not self.trace_id:
@@ -190,6 +292,7 @@ class Tracer:
             self.enabled = False
             self.tail = False
             self._spans.clear()
+            self._pending.clear()
             self._root_durs.clear()
             self.kept = 0
             self.discarded = 0
@@ -201,6 +304,7 @@ class Tracer:
         """Drop buffered spans but keep the enabled state and trace id."""
         with self._lock:
             self._spans.clear()
+            self._pending.clear()
             self._root_durs.clear()
             self.dropped = 0
             self.kept = 0
@@ -218,6 +322,34 @@ class Tracer:
         if not self.enabled:
             return _NULL
         return _Span(self, name, tier, attrs)
+
+    def device_span(self, name: str, device: Any, tier: str = "-",
+                    **attrs: Any) -> Any:
+        """``span`` that also times its body on ``device``'s current stream
+        with a pair of CUDA events (on the CPU, none): the host never waits
+        on them here, ``snapshot`` resolves them into ``attrs["device_s"]``.
+        A shared no-op when disabled."""
+        if not self.enabled:
+            return _NULL
+        return _DeviceSpan(self, name, tier, attrs, device)
+
+    def count(self, key: str, n: float = 1) -> None:
+        """Add ``n`` to counter ``key`` of the innermost open span on this
+        thread; a no-op when disabled."""
+        if not self.enabled:
+            return
+        sp = getattr(self._tls, "open", None)
+        if sp is not None:
+            sp.counts[key] = sp.counts.get(key, 0) + n
+
+    def wait(self, site: str) -> Any:
+        """A context around a point where the host waits for the device
+        (a readback, a blocking upload, a synchronize): counts one
+        ``host_syncs`` and its host seconds in ``sync_wait_s`` (and under
+        ``.<site>``).  A shared no-op when disabled."""
+        if not self.enabled:
+            return _NULL
+        return _Wait(self, site)
 
     def event(self, name: str, tier: str = "-", **attrs: Any) -> None:
         """Record a zero-duration event parented to the current span."""
@@ -366,9 +498,24 @@ class Tracer:
     # -- inspection / export ----------------------------------------------
 
     def snapshot(self) -> List[Dict[str, Any]]:
-        """Return a stable copy of the buffered spans (oldest first)."""
+        """Return a stable copy of the buffered spans (oldest first).  Each
+        device span whose end event the device has passed gets its
+        ``device_s``; the rest stay pending: this never waits for the
+        device."""
+        self._resolve(wait=False)
         with self._lock:
             return list(self._spans)
+
+    def _resolve(self, wait: bool) -> None:
+        """Write ``device_s`` into the device spans whose events the device
+        has passed, oldest first; with ``wait``, wait for every one."""
+        while True:
+            with self._lock:
+                if not self._pending or not (wait or self._pending[0][2].query()):
+                    break
+                attrs, start, end = self._pending.popleft()
+            end.synchronize()
+            attrs["device_s"] = start.elapsed_time(end) / 1e3
 
     def find(self, span_id: int) -> Optional[Dict[str, Any]]:
         """Return the most recent buffered span with *span_id*, if any."""
@@ -381,11 +528,28 @@ class Tracer:
         return None
 
     def save(self, path: str) -> int:
-        """Write the buffer as Chrome-trace JSON to *path*; returns span count."""
+        """Write the buffer as Chrome-trace JSON to *path*; returns span
+        count.  Waits for the device to resolve every ``device_s``."""
+        self._resolve(wait=True)
         spans = self.snapshot()
+        blob = chrome_trace(spans)
+        blob["otherData"] = {"clock_offset_ns": self.clock_offset_ns}
         with open(path, "w") as f:
-            json.dump(chrome_trace(spans), f)
+            json.dump(blob, f)
         return len(spans)
+
+
+def wall_offset_ns() -> int:
+    """``time.time_ns() - time.perf_counter_ns()`` from the closest of a
+    few paired reads (the pair with the smallest gap wins)."""
+    best = None
+    for _ in range(16):
+        a = time.perf_counter_ns()
+        w = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, w - (a + b) // 2)
+    return best[1]
 
 
 #: Process-global tracer used by every instrumented tier.

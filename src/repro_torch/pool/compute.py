@@ -16,6 +16,13 @@ card ("auto") or its plain torch version ("ref", and every tensor on the
 CPU); every other int8 configuration runs the per-pair stage 1 over the
 quantized tier's device slots (``_stage1_pairs``).
 
+With the tracer on, a search is one ``compute.search`` span whose
+counters (``walk_steps``, ``route_steps``, ``host_syncs``,
+``sync_wait_s`` and their per-site parts) are copied into its ``stats``;
+every point where the host waits for the card (an upload from host
+memory through ``_t``, a readback, a synchronize) is wrapped in
+``TRACER.wait``.
+
 The flat view keeps a device twin of its payload columns (``_flat_cols``:
 gid, region row, pid), which the reference reads from host arrays; an
 insert that extends the view writes its row there too.
@@ -70,7 +77,10 @@ class ComputeClient:
         return self.pool.store
 
     def _t(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=dtype, device=self.device)
+        """Host data on the device: from pageable memory the copy waits
+        for the stream, so it is a host sync."""
+        with TRACER.wait("upload"):
+            return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------ build
 
@@ -177,17 +187,30 @@ class ComputeClient:
         pids, _ = S.meta_route(self._meta_vecs, self._meta_adj, q_dev,
                                self._meta_entry, b=b,
                                n_levels=self.meta.graph.n_levels)
-        return pids.cpu().numpy()
+        with TRACER.wait("readback"):
+            return pids.cpu().numpy()
 
     def search(self, queries: np.ndarray, k: int = 10,
                ef: Optional[int] = None, b: Optional[int] = None):
         """Batched top-k.  Returns (dists (B,k) f32, gids (B,k) int64,
-        stats) as numpy arrays."""
+        stats) as numpy arrays; with the tracer on, ``stats`` also holds
+        the ``compute.search`` span's counters."""
         cfg = self.cfg
         ef = ef or cfg.ef
         b = b or cfg.b
-        if cfg.quant != "none":
-            return self._search_quant(queries, k=k, ef=ef, b=b)
+        with TRACER.span("compute.search", tier="compute", k=int(k),
+                         quant=cfg.quant) as sp:
+            if cfg.quant != "none":
+                out = self._search_quant(queries, k=k, ef=ef, b=b)
+            else:
+                out = self._search_exact(queries, k, ef, b)
+            if sp.span_id:               # a live span, not the no-op
+                out[2].update(sp.counts)
+            return out
+
+    def _search_exact(self, queries: np.ndarray, k: int, ef: int, b: int):
+        """Exact search: route, plan, then fetch -> serve -> merge rounds."""
+        cfg = self.cfg
         pool = self.pool
         spec = pool.spec
         queries = np.ascontiguousarray(queries, np.float32)
@@ -197,10 +220,10 @@ class ComputeClient:
         stats = {"meta_s": 0.0, "sub_s": 0.0, "plan_s": 0.0,
                  "n_rounds": 0, "n_pairs": 0}
 
-        t0 = time.perf_counter()
-        pids = self._route(q_dev, b)
-        stats["meta_s"] = time.perf_counter() - t0
-        TRACER.add("compute.route", "compute", t0, stats["meta_s"], B=B)
+        with TRACER.span("compute.route", tier="compute", B=B):
+            t0 = time.perf_counter()
+            pids = self._route(q_dev, b)
+            stats["meta_s"] = time.perf_counter() - t0
 
         # plan (compute-instance CPU role)
         t0 = time.perf_counter()
@@ -248,7 +271,10 @@ class ComputeClient:
                              pairs=int(len(rnd.serve_pairs))):
                 if len(rnd.fetch_pids):
                     with TRACER.span("compute.fetch", tier="compute",
-                                     spans=int(len(rnd.fetch_pids))):
+                                     spans=int(len(rnd.fetch_pids))) as fsp:
+                        if TRACER.enabled:
+                            fsp.set(row_bytes=LA.partition_row_bytes(
+                                pool.store, rnd.fetch_pids))
                         g_blocks, v_blocks = pool.read_spans(
                             rnd.fetch_pids, ledger=fetch_ledger,
                             doorbell=fetch_doorbell)
@@ -257,25 +283,26 @@ class ComputeClient:
                                        v_blocks)
                 if not len(rnd.serve_pairs):
                     continue
-                t0 = time.perf_counter()
                 n = len(rnd.serve_pairs)
-                qi, ppid, pslot, prank, valid = rnd.serve_tensors(
-                    pow2_pad(n), B)
-                # n_lanes is b: a query never has more than b pairs in
-                # one round
-                run_d, run_g = DS.serve_and_merge(
-                    spec, cache_g, cache_v, mt_dev, q_dev, run_d, run_g,
-                    self._t(qi), self._t(ppid), self._t(pslot),
-                    self._t(prank), self._t(valid), k=k, ef=ef,
-                    mode=cfg.search_mode, n_lanes=b)
-                dt = time.perf_counter() - t0
-                stats["sub_s"] += dt
-                TRACER.add("compute.serve", "compute", t0, dt, pairs=n)
+                with TRACER.span("compute.serve", tier="compute", pairs=n):
+                    t0 = time.perf_counter()
+                    qi, ppid, pslot, prank, valid = rnd.serve_tensors(
+                        pow2_pad(n), B)
+                    # n_lanes is b: a query never has more than b pairs
+                    # in one round
+                    run_d, run_g = DS.serve_and_merge(
+                        spec, cache_g, cache_v, mt_dev, q_dev, run_d, run_g,
+                        self._t(qi), self._t(ppid), self._t(pslot),
+                        self._t(prank), self._t(valid), k=k, ef=ef,
+                        mode=cfg.search_mode, n_lanes=b)
+                    stats["sub_s"] += time.perf_counter() - t0
                 stats["n_pairs"] += n
 
         t0 = time.perf_counter()
-        run_d = run_d.cpu().numpy()
-        run_g = run_g.cpu().numpy().astype(np.int64)
+        with TRACER.wait("readback"):
+            run_d = run_d.cpu().numpy()
+        with TRACER.wait("readback"):
+            run_g = run_g.cpu().numpy().astype(np.int64)
         stats["sub_s"] += time.perf_counter() - t0
         stats["net"] = ledger.as_dict()
         stats["round_trips_per_query"] = ledger.round_trips / max(B, 1)
@@ -318,55 +345,71 @@ class ComputeClient:
         # stage-2 accounting: pool payload -> row fetch plan
         t0 = time.perf_counter()
         if pool_p.is_cuda:
-            torch.cuda.synchronize(pool_p.device)
+            with TRACER.wait("synchronize"):
+                torch.cuda.synchronize(pool_p.device)
         stats["sub_s"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pool_h = pool_p.cpu().numpy()
-        live = pool_h[:, :, 1] >= 0
-        flat_rows = pool_h[:, :, 1][live]
-        flat_pids = pool_h[:, :, 2][live]
-        n_admitted = 0
-        if cfg.mode == "naive":
-            pool.post_row_reads([(int(p), 1) for p in flat_pids],
-                                ledger=ledger, doorbell=1)
-            stats["rerank_rows"] = int(len(flat_rows))
-            stats["rerank_hit_rows"] = 0
-        else:
-            # query-aware: each needed row moves at most once per batch
-            uniq_rows, first = np.unique(flat_rows, return_index=True)
-            uniq_pids = flat_pids[first]
-            resident = tiers.exact.resident()
-            hit = np.isin(uniq_pids, np.fromiter(resident, np.int64,
-                                                 len(resident)))
-            groups: dict[int, int] = {}
-            for p in uniq_pids[~hit].tolist():
-                groups[p] = groups.get(p, 0) + 1
-            items = sorted(groups.items())
-            pool.post_row_reads(
-                items, ledger=ledger,
-                doorbell=1 if cfg.mode == "no_doorbell" else cfg.doorbell)
-            if items:
-                ledger.save(pb * len(items)
-                            - sum(c for _, c in items) * row_b)
-            for p in set(uniq_pids[hit].tolist()):
-                tiers.exact.touch(int(p))
-            # cost-based admission: a partition whose cumulative missed
-            # re-rank rows already outweigh one span fetch is promoted
-            for p, cnt in items:
-                tiers.note_rerank_miss(int(p), cnt)
-                if tiers.should_admit(int(p), row_b, pb):
-                    slot, _ = tiers.admit_exact(int(p))
-                    g_b, v_b = pool.read_spans(np.array([int(p)]),
-                                               ledger=ledger, doorbell=1)
-                    DS.write_slots(spec, self._cache_g, self._cache_v,
-                                   self._t([slot], torch.int32), g_b, v_b)
-                    n_admitted += 1
-            stats["rerank_rows"] = int((~hit).sum())
-            stats["rerank_hit_rows"] = int(hit.sum())
-        dt = time.perf_counter() - t0
-        stats["plan_s"] += dt
-        TRACER.add("compute.rerank_plan", "compute", t0, dt,
-                   admitted=n_admitted)
+        with TRACER.span("compute.rerank_plan", tier="compute") as plan_sp:
+            t0 = time.perf_counter()
+            with TRACER.span("compute.rerank_plan.readback",
+                             tier="compute"), TRACER.wait("readback"):
+                pool_h = pool_p.cpu().numpy()
+            live = pool_h[:, :, 1] >= 0
+            flat_rows = pool_h[:, :, 1][live]
+            flat_pids = pool_h[:, :, 2][live]
+            n_admitted = 0
+            if cfg.mode == "naive":
+                with TRACER.span("compute.rerank_plan.charge",
+                                 tier="compute"):
+                    pool.post_row_reads([(int(p), 1) for p in flat_pids],
+                                        ledger=ledger, doorbell=1)
+                stats["rerank_rows"] = int(len(flat_rows))
+                stats["rerank_hit_rows"] = 0
+            else:
+                # query-aware: each needed row moves at most once per batch
+                with TRACER.span("compute.rerank_plan.dedup",
+                                 tier="compute"):
+                    uniq_rows, first = np.unique(flat_rows,
+                                                 return_index=True)
+                    uniq_pids = flat_pids[first]
+                    resident = tiers.exact.resident()
+                    hit = np.isin(uniq_pids, np.fromiter(
+                        resident, np.int64, len(resident)))
+                    groups: dict[int, int] = {}
+                    for p in uniq_pids[~hit].tolist():
+                        groups[p] = groups.get(p, 0) + 1
+                    items = sorted(groups.items())
+                with TRACER.span("compute.rerank_plan.charge",
+                                 tier="compute"):
+                    pool.post_row_reads(
+                        items, ledger=ledger,
+                        doorbell=1 if cfg.mode == "no_doorbell"
+                        else cfg.doorbell)
+                    if items:
+                        ledger.save(pb * len(items)
+                                    - sum(c for _, c in items) * row_b)
+                with TRACER.span("compute.rerank_plan.admit",
+                                 tier="compute"):
+                    for p in set(uniq_pids[hit].tolist()):
+                        tiers.exact.touch(int(p))
+                    # cost-based admission: a partition whose cumulative
+                    # missed re-rank rows already outweigh one span fetch
+                    # is promoted
+                    for p, cnt in items:
+                        tiers.note_rerank_miss(int(p), cnt)
+                        if tiers.should_admit(int(p), row_b, pb):
+                            slot, _ = tiers.admit_exact(int(p))
+                            g_b, v_b = pool.read_spans(
+                                np.array([int(p)]), ledger=ledger,
+                                doorbell=1)
+                            DS.write_slots(spec, self._cache_g,
+                                           self._cache_v,
+                                           self._t([slot], torch.int32),
+                                           g_b, v_b)
+                            n_admitted += 1
+                stats["rerank_rows"] = int((~hit).sum())
+                stats["rerank_hit_rows"] = int(hit.sum())
+            stats["plan_s"] += time.perf_counter() - t0
+            plan_sp.set(admitted=n_admitted)
         stats["exact_admitted"] = n_admitted
 
         # stage-2 re-rank: exact distances over candidate rows only
@@ -375,8 +418,10 @@ class ComputeClient:
             vrows = pool.read_rows(pool_p[:, :, 1])
             run_d, run_g = DS.rerank_gathered(vrows, q_dev, pool_p[:, :, 1],
                                               pool_p[:, :, 0], k=k)
-            run_d = run_d.cpu().numpy()
-        run_g = run_g.cpu().numpy().astype(np.int64)
+            with TRACER.wait("readback"):
+                run_d = run_d.cpu().numpy()
+        with TRACER.wait("readback"):
+            run_g = run_g.cpu().numpy().astype(np.int64)
         stats["sub_s"] += time.perf_counter() - t0
 
         stats["net"] = ledger.as_dict()
@@ -396,10 +441,10 @@ class ComputeClient:
         spec = pool.spec
         include_graph = cfg.search_mode == "graph"
 
-        t0 = time.perf_counter()
-        pids = self._route(q_dev, b)
-        stats["meta_s"] = time.perf_counter() - t0
-        TRACER.add("compute.route", "compute", t0, stats["meta_s"], B=B)
+        with TRACER.span("compute.route", tier="compute", B=B):
+            t0 = time.perf_counter()
+            pids = self._route(q_dev, b)
+            stats["meta_s"] = time.perf_counter() - t0
 
         # stage-1 plan against the quantized tier.  A quantized span read
         # moves the codes + codebook (and, in graph mode, the adjacency
@@ -459,19 +504,18 @@ class ComputeClient:
                                              *blocks)
                 if not len(rnd.serve_pairs):
                     continue
-                t0 = time.perf_counter()
                 n = len(rnd.serve_pairs)
-                qi, ppid, pslot, prank, valid = rnd.serve_tensors(
-                    pow2_pad(n), B)
-                pool_d, pool_p = DS.serve_quant_pool(
-                    spec, *slots_q, mt_dev, q_dev, pool_d, pool_p,
-                    self._t(qi), self._t(ppid), self._t(pslot),
-                    self._t(prank), self._t(valid), m=m, ef=max(ef, m),
-                    mode=cfg.search_mode, n_lanes=b)
-                dt = time.perf_counter() - t0
-                stats["sub_s"] += dt
-                TRACER.add("compute.serve", "compute", t0, dt, pairs=n,
-                           quant=True)
+                with TRACER.span("compute.serve", tier="compute", pairs=n,
+                                 quant=True):
+                    t0 = time.perf_counter()
+                    qi, ppid, pslot, prank, valid = rnd.serve_tensors(
+                        pow2_pad(n), B)
+                    pool_d, pool_p = DS.serve_quant_pool(
+                        spec, *slots_q, mt_dev, q_dev, pool_d, pool_p,
+                        self._t(qi), self._t(ppid), self._t(pslot),
+                        self._t(prank), self._t(valid), m=m, ef=max(ef, m),
+                        mode=cfg.search_mode, n_lanes=b)
+                    stats["sub_s"] += time.perf_counter() - t0
                 stats["n_pairs"] += n
         return pool_d, pool_p, {"n_cache_hits": plan.n_cache_hits,
                                 "n_fetches": plan.n_fetches}, tiers

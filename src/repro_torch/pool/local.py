@@ -37,6 +37,7 @@ from repro_torch.core import layout as LA
 from repro_torch.core.cost_model import NetLedger
 from repro_torch.core.layout import Store
 from repro_torch.core.scheduler import doorbell_chunks
+from repro_torch.obs.trace import TRACER
 from repro_torch.pool.protocol import (MemoryPool, _fresh_totals,
                                        span_wire_bytes)
 
@@ -256,8 +257,9 @@ class LocalPool(MemoryPool):
         block_ids = np.stack([self.store.span_block_ids(int(p))
                               for p in pids])
         block_ids = self._staged_block_ids(block_ids)
-        ids = torch.as_tensor(block_ids.reshape(-1), dtype=torch.int32,
-                              device=self.device)
+        with TRACER.wait("upload"):
+            ids = torch.as_tensor(block_ids.reshape(-1), dtype=torch.int32,
+                                  device=self.device)
         m = block_ids.shape[0]
         if not quant:
             g, v = self._gather_spans((self._g_dev, self._v_dev), ids)

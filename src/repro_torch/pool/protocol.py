@@ -76,8 +76,9 @@ class MemoryPool(abc.ABC):
         restaged lazily after writes move the host counters."""
         self.verbs["read_meta"] += 1
         if self._mt_dirty:
-            self._mt_dev = torch.as_tensor(self.store.meta_table,
-                                           device=self.device)
+            with TRACER.wait("upload"):
+                self._mt_dev = torch.as_tensor(self.store.meta_table,
+                                               device=self.device)
             self._mt_dirty = False
         return self._mt_dev
 

@@ -83,6 +83,7 @@ import torch
 from repro_torch.core import layout as LA
 from repro_torch.core.cost_model import NetLedger
 from repro_torch.core.layout import Store
+from repro_torch.obs.trace import TRACER
 from repro_torch.pool.placement import (PlacementPolicy, _shard_rank,
                                   apply_budgets, make_placement,
                                   place_replicated)
@@ -362,8 +363,9 @@ class ShardedPool(MemoryPool):
     # ------------------------------------------------------------ meta
 
     def _stage_meta(self) -> None:
-        self._mt_dev = torch.as_tensor(self.store.meta_table,
-                                       device=self.device)
+        with TRACER.wait("upload"):
+            self._mt_dev = torch.as_tensor(self.store.meta_table,
+                                           device=self.device)
         self._mt_dirty = False
 
     # read_meta: the shared MemoryPool implementation (serves the
@@ -466,7 +468,9 @@ class ShardedPool(MemoryPool):
             if outs is None:
                 outs = [torch.zeros((m,) + tuple(r.shape[1:]), dtype=r.dtype,
                                     device=self.device) for r in res]
-            di = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+            with TRACER.wait("upload"):
+                di = torch.as_tensor(idx, dtype=torch.int64,
+                                     device=self.device)
             for o, r in zip(outs, res):
                 o.index_copy_(0, di, r)
         if ledger is not None:        # heat accrues on charged traffic
@@ -480,8 +484,9 @@ class ShardedPool(MemoryPool):
         like a single pool, masked by the caller.  A shard failing
         mid-fan marks it dead and restarts the fan on the healed
         serving map (child gathers are side-effect-free)."""
-        rows_h = (rows.cpu().numpy() if isinstance(rows, torch.Tensor)
-                  else np.asarray(rows))
+        with TRACER.wait("readback"):
+            rows_h = (rows.cpu().numpy() if isinstance(rows, torch.Tensor)
+                      else np.asarray(rows))
         while True:
             owners = self._owners_of_rows(rows_h)
             if ((owners < 0) & (np.asarray(rows_h, np.int64) >= 0)).any():
@@ -492,9 +497,10 @@ class ShardedPool(MemoryPool):
             for s in np.unique(owners[owners >= 0]):
                 s = int(s)
                 mask = owners == s
-                sub = torch.as_tensor(
-                    np.where(mask, rows_h, -1).astype(np.int32),
-                    device=self.device)
+                with TRACER.wait("upload"):
+                    sub = torch.as_tensor(
+                        np.where(mask, rows_h, -1).astype(np.int32),
+                        device=self.device)
                 try:
                     res = gather(self.children[s], sub)
                 except PoolUnavailableError:
@@ -503,7 +509,8 @@ class ShardedPool(MemoryPool):
                     break
                 if not isinstance(res, tuple):
                     res = (res,)
-                mdev = torch.as_tensor(mask, device=self.device)
+                with TRACER.wait("upload"):
+                    mdev = torch.as_tensor(mask, device=self.device)
                 if out is None:
                     out = list(res)
                 else:
@@ -516,9 +523,11 @@ class ShardedPool(MemoryPool):
             if out is None:           # every lane dead: any child serves
                 live = np.nonzero(self._alive)[0]
                 s = int(live[0]) if len(live) else 0
-                return gather(self.children[s], torch.as_tensor(
-                    np.asarray(rows_h, np.int64).astype(np.int32),
-                    device=self.device))
+                with TRACER.wait("upload"):
+                    sub = torch.as_tensor(
+                        np.asarray(rows_h, np.int64).astype(np.int32),
+                        device=self.device)
+                return gather(self.children[s], sub)
             return out[0] if len(out) == 1 else tuple(out)
 
     def read_rows(self, rows):
