@@ -18,12 +18,16 @@ Phases, each printing its own lines:
    alone; for
    ``distance_topk``, the throughput benchmark's B=128 x N=4096 and the
    flat f32 twin of ``quant_topk``'s shape; for ``decode_attention``,
-   phase 9's first decode call and a long-context shape), with times
+   phase 9's first decode call and a long-context shape; for
+   ``beam_walk``, every round of phase 5w's batch and 18b's first two
+   gist rounds, held on the paths' own inputs), with times
    (CUDA events) beside the bound, the plain version's time and the
    library call's time (for the top-k kernels the cuBLAS product alone);
 5. exact search (``mode="full"``, b=4, ef=48, doorbell 16, RDMA fabric,
    the CUDA doorbell gather) for ``search_mode`` graph and scan, one batch
    of 2000 at k=10, held against the same engine with the gather off;
+   5w: the graph batch once more, each round's ``beam_walk`` launch held
+   against the plain loop on its inputs (phase 4's walk record);
 6. int8 flat search (``quant_kernel="auto"``: the CUDA ``quant_topk``
    stage 1), held against ``quant_kernel="ref"``;
 7. the throughput benchmark (``benchmarks/torch_throughput.py`` at the
@@ -299,6 +303,8 @@ from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
 from repro_torch import tree as TREE  # noqa: E402
 from repro_torch.convert import SPEC_FIELDS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.beam_walk import ops as BW  # noqa: E402
+from repro_torch.kernels.beam_walk.ref import beam_walk_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as DA  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref)
@@ -317,6 +323,7 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import params as PR  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.net import RemotePool, spawn_pool_servers  # noqa: E402
+from repro_torch.obs.trace import TRACER  # noqa: E402
 from repro_torch.pool import LocalPool  # noqa: E402
 from repro_torch.pool.compute import ComputeClient  # noqa: E402
 from repro_torch.pool.protocol import (  # noqa: E402
@@ -1431,9 +1438,245 @@ def wide_topk(q, codes, scales, vecs, n_valid: int, group: int,
             f"|d - plain| {err:.3g} | {line}bound {bound:.4f} ms")
 
 
+class _PlainWalkCounts(torch.overrides.TorchFunctionMode):
+    """Reads, from inside the plain walk (``core/search.py
+    batched_beam_search``), each lane's beam steps and its visited marks.
+    The loop tests ``active.any()`` once an iteration, so a lane's steps
+    are the sum of ``active`` over those tests (a lane that has stopped
+    stays stopped); ``visited`` is the one bool tensor it scatters into."""
+
+    def __init__(self):
+        super().__init__()
+        self.steps = self.visited = None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.Tensor.any and args[0].dtype == torch.bool \
+                and args[0].dim() == 1:
+            a = args[0].to(torch.int64)
+            self.steps = a if self.steps is None else self.steps + a
+        elif func is torch.Tensor.scatter_ and args[0].dtype == torch.bool:
+            self.visited = args[0]
+        return out
+
+
+def plain_walk_counts(vectors, adjacency, queries, entry, *, ef: int,
+                      max_iters=None):
+    """``beam_walk_ref`` on these inputs (the tracer held off) -> (dists,
+    ids, each lane's beam steps (B,) int64, and the vector rows each lane
+    read at least once (B,) int64: its visited nodes but node 0, which
+    the loop marks without a read, plus the entry where that is node
+    0)."""
+    counts = _PlainWalkCounts()
+    was, TRACER.enabled = TRACER.enabled, False
+    try:
+        with counts:
+            d, i = beam_walk_ref(vectors, adjacency, queries, entry, ef=ef,
+                                 max_iters=max_iters)
+    finally:
+        TRACER.enabled = was
+    B, n = vectors.shape[:2]
+    zeros = torch.zeros(B, dtype=torch.int64, device=queries.device)
+    steps = zeros if counts.steps is None else counts.steps
+    seen = (zeros if counts.visited is None
+            else counts.visited[:, 1:n].sum(1) - (entry != 0).long())
+    return d, i, steps, seen + 1
+
+
+def _walk_parting(launch, args, lane: int, ef: int, max_iters) -> tuple:
+    """Where one lane's kernel walk and plain walk part: both rerun on the
+    lane alone with ``max_iters`` = 1, 2, ... until their beams' ids
+    differ.  Returns (step, positions that differ, relative distance gap
+    rank by rank there, and the largest relative gap in f64 between the
+    rows the two beams hold at one such position); raises unless they
+    part at a tie, the beams' distances equal rank by rank within
+    ``TOPK_RTOL`` while their ids differ (two rows the two orders of
+    summation rank the other way)."""
+    one = tuple(a[lane:lane + 1] for a in args)
+    for t in range(1, (max_iters or 2 * ef + 8) + 1):
+        dk, ik = (x.cpu().numpy()[0] for x in launch(*one, ef=ef,
+                                                     max_iters=t)[:2])
+        was, TRACER.enabled = TRACER.enabled, False
+        try:
+            dp, ip = (x.cpu().numpy()[0] for x in beam_walk_ref(
+                *one, ef=ef, max_iters=t))
+        finally:
+            TRACER.enabled = was
+        if np.array_equal(ik, ip):
+            continue
+        at = np.nonzero(ik != ip)[0]
+        with np.errstate(invalid="ignore"):
+            gap = np.abs(dk[at] - dp[at]) / np.abs(dp[at])
+        if not (np.isfinite(dp[at]).all() and (gap <= TOPK_RTOL).all()):
+            raise AssertionError(
+                f"lane {lane}: the walks part at step {t} beyond a tie: "
+                f"positions {at.tolist()}, ids {ik[at].tolist()} against "
+                f"{ip[at].tolist()}, distances {dk[at].tolist()} against "
+                f"{dp[at].tolist()}")
+        v, q = one[0][0].double(), one[2][0].double()
+        n = v.shape[0]
+
+        def d64(ids):
+            rows = v[torch.as_tensor(ids, device=v.device).clamp(0, n - 1)]
+            return ((rows - q) ** 2).sum(-1).cpu().numpy()
+        a, b = d64(ik[at]), d64(ip[at])
+        return t, at.tolist(), float(gap.max()), float(
+            (np.abs(a - b) / np.maximum(a, b)).max())
+    raise AssertionError(f"lane {lane}: its steps differ but its beams "
+                         f"never part")
+
+
+def _walk_round(launch, args, ef: int, max_iters, out, timed: bool) -> dict:
+    """One walk launch of a path held against the plain loop on the same
+    inputs: ids equal up to ties and distances within ``TOPK_RTOL``
+    relative, every lane's steps equal to the plain loop's but in a lane
+    whose walks part at a tie (``_walk_parting``), where the two orders
+    of a distance's sum rank two rows the other way.  On the card,
+    the launch's time (CUDA events), the plain loop's, and the bound:
+    the bytes a lane must read at the least (one adjacency row a step,
+    each vector row it visited once, the query, the outputs) at the HBM
+    peak.  Returns the round's shape, its differences and its times."""
+    vectors, adjacency, queries, entry = args
+    d, i, steps = out
+    d0, i0, steps0, rows = plain_walk_counts(*args, ef=ef,
+                                             max_iters=max_iters)
+    B, n, D = vectors.shape
+    deg = adjacency.shape[2]
+    what = f"beam_walk round ({B} lanes, n {n}, D {D}, ef {ef})"
+    dk, ik, d0, i0 = (t.cpu().numpy() for t in (d, i, d0, i0))
+    ok, n_diff = ids_agree_up_to_ties(ik, i0, d0, rtol=TOPK_RTOL)
+    if not ok:
+        raise AssertionError(f"{what}: {n_diff} ids differ beyond ties")
+    if not np.allclose(dk, d0, rtol=TOPK_RTOL, atol=0):
+        raise AssertionError(f"{what}: distances differ beyond "
+                             f"rtol {TOPK_RTOL}")
+    sk, s0 = steps.cpu().numpy(), steps0.cpu().numpy()
+    lanes = np.nonzero(sk != s0)[0]
+    if len(lanes) > max(1, B // 100):
+        raise AssertionError(f"{what}: steps differ in {len(lanes)} lanes")
+    partings = []
+    for b in lanes.tolist():
+        try:
+            partings.append((b, int(sk[b]), int(s0[b]),
+                             *_walk_parting(launch, args, b, ef, max_iters)))
+        except AssertionError as e:
+            raise AssertionError(f"{what}: steps differ in lane {b} ("
+                                 f"{sk[b]} against {s0[b]}): {e}") from None
+    fin = np.isfinite(d0)
+    err = np.where(fin, np.abs(np.where(fin, dk, 0) - np.where(fin, d0, 0)),
+                   0.0)
+    rel = np.where(fin & (d0 != 0), err / np.where(d0 != 0, np.abs(d0), 1),
+                   0.0)
+    nbytes = 4 * (int(s0.sum()) * deg + int(rows.sum()) * D
+                  + B * (D + 1) + B * ef * 3)
+    rec = {"lanes": B, "n": n, "D": D, "deg": deg, "ef": ef,
+           "steps_max": int(s0.max()) if B else 0, "ids_differ": n_diff,
+           "partings": partings,
+           "max_abs_err": float(err.max()) if err.size else 0.0,
+           "max_rel_err": float(rel.max()) if rel.size else 0.0,
+           "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+           "upper_bytes": 4 * (int(s0.sum()) * deg * (D + 1) + B * D
+                               + B * (D + 1) + B * ef * 3),
+           "ms": None, "plain_ms": None}
+    if timed:
+        rec["ms"] = device_ms(lambda: launch(*args, ef=ef,
+                                             max_iters=max_iters), 10)
+        rec["plain_ms"] = device_ms(lambda: beam_walk_ref(
+            *args, ef=ef, max_iters=max_iters), 2)
+    return rec
+
+
+class WalkCheck:
+    """While active, holds each of the first ``limit`` (None: every) walk
+    launches whose vectors ``want`` accepts against the plain loop, inside
+    the call and on its inputs (``_walk_round``; nothing is kept past the
+    call), into ``rounds``.  The path's own call goes to the real launch
+    and returns its result, and the check's launches are taken back off
+    ``BW.launches``, so the path's answers and counts are unchanged."""
+
+    def __init__(self, want=None, limit=None, timed: bool = True):
+        self.want, self.limit, self.timed = want, limit, timed
+        self.rounds = []
+
+    def __enter__(self) -> "WalkCheck":
+        self.real = BW.launch
+        BW.launch = self._call
+        return self
+
+    def _call(self, vectors, adjacency, queries, entry, *, ef: int,
+              max_iters=None):
+        out = self.real(vectors, adjacency, queries, entry, ef=ef,
+                        max_iters=max_iters)
+        if ((self.limit is None or len(self.rounds) < self.limit)
+                and (self.want is None or self.want(vectors))):
+            n = BW.launches
+            self.rounds.append(_walk_round(
+                self.real, (vectors, adjacency, queries, entry), ef,
+                max_iters, out, self.timed))
+            BW.launches = n
+        return out
+
+    def __exit__(self, *exc) -> None:
+        BW.launch = self.real
+
+
+def _walk_record(shapes, timed: bool) -> dict:
+    """``beam_walk``'s phase 4 record from ``WalkCheck`` rounds: ``shapes``
+    is [(label, rounds)], the first the main path's (phase 5's exact
+    graph batch, every round).  ``ms``, ``plain_ms`` and ``bound_ms`` are
+    a launch's, the mean over the first shape's rounds; ``max_abs_err``
+    is the largest |d - plain| over every round.  Prints a line a
+    shape."""
+    for label, rounds in shapes:
+        if not rounds:
+            raise AssertionError(f"beam_walk: no {label} round was checked")
+        lanes = [r["lanes"] for r in rounds]
+        line = (f"[4 kernels] beam_walk {label}: {len(rounds)} rounds, "
+                f"{min(lanes)}-{max(lanes)} lanes, n "
+                f"{min(r['n'] for r in rounds)}-"
+                f"{max(r['n'] for r in rounds)}, D {rounds[0]['D']}, deg "
+                f"{rounds[0]['deg']}, ef {rounds[0]['ef']}, longest lane "
+                f"{max(r['steps_max'] for r in rounds)} steps: ids equal up "
+                f"to ties ({sum(r['ids_differ'] for r in rounds)} tied "
+                f"positions differ), max rel |d - plain| "
+                f"{max(r['max_rel_err'] for r in rounds):.3g}, every lane's "
+                f"steps equal the plain loop's but "
+                f"{sum(len(r['partings']) for r in rounds)} lanes of "
+                f"{sum(lanes)} whose walks part at a tie (lane, steps, plain "
+                f"steps, step parted, positions, rel gap, rel gap of the "
+                f"rows in f64): "
+                f"{[p for r in rounds for p in r['partings']][:6]}")
+        if timed:
+            ms = [r["ms"] for r in rounds]
+            us_step = [1e3 * r["ms"] / max(r["steps_max"], 1) for r in rounds]
+            line += (f" | kernel {min(ms):.4f}-{max(ms):.4f} ms a launch "
+                     f"(sum {sum(ms):.4f}), {min(us_step):.2f}-"
+                     f"{max(us_step):.2f} us a step of the longest lane, "
+                     f"plain {sum(r['plain_ms'] for r in rounds):.2f} ms")
+        upper = (sum(r["upper_bytes"] for r in rounds)
+                 / sum(r["bytes"] for r in rounds))
+        line += (f", bound (bytes read at the least) "
+                 f"{sum(r['bound_ms'] for r in rounds):.4f} ms; every "
+                 f"neighbour row a step would be {upper:.2f}x those bytes")
+        log(line)
+    rounds = shapes[0][1]
+
+    def mean(key):
+        return (sum(r[key] for r in rounds) / len(rounds)
+                if rounds[0][key] is not None else None)
+    return {"name": "beam_walk", "route": "cuda",
+            "source": "src/repro_torch/kernels/beam_walk/csrc/beam_walk.cu",
+            "replaces": "src/repro/core/search.py:114", "launches": 0,
+            "max_abs_err": max(r["max_abs_err"] for _, rs in shapes
+                               for r in rs),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"), "bound_by": "bytes",
+            "library_ms": None}
+
+
 def phase_kernels(store, qstore, data, queries, launches, device, *,
                   k: int = 20, decode_shapes=(), sweep: bool = False,
-                  extra_bufs=None, gather_parts=()) -> list:
+                  extra_bufs=None, gather_parts=(), walks=()) -> list:
     """Phase 4: each kernel against its plain version at the paths'
     shapes.  gather_blocks: every launch of phases 5, 8-13
     (``gather_launches``: one per span read) on its staged buffers (int32
@@ -1444,7 +1687,9 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
     (``queries[:128]`` x ``data[:4096]``, k=10) and the flat f32 twin of
     the quant_topk call.  Top-k ids equal up to ties and distances within
     rtol 1e-5 / atol 1e-3.  decode_attention: ``decode_shapes`` (see
-    ``_decode_record``), when given.  ``extra_bufs`` names the buffers
+    ``_decode_record``), when given.  beam_walk: the rounds ``WalkCheck``
+    held against the plain loop on the paths (``walks``, see
+    ``_walk_record``), when given.  ``extra_bufs`` names the buffers
     of the launches phases 10-18 recorded; ``gather_parts`` (label,
     buffer-name prefix) times those launches alone.  Beside the path's
     calls,
@@ -1525,11 +1770,13 @@ def phase_kernels(store, qstore, data, queries, launches, device, *,
         topk_anatomy(calls, device)
     if decode_shapes:
         records.append(_decode_record(decode_shapes, device, timed, sweep))
+    if walks:
+        records.append(_walk_record(walks, timed))
     return records
 
 
 KERNEL_OPS = {"gather_blocks": GO, "quant_topk": QO, "distance_topk": DO,
-              "decode_attention": DA}
+              "decode_attention": DA, "beam_walk": BW}
 
 
 def _reset_launches() -> None:
@@ -1612,10 +1859,12 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
     results must be equal).  ``gathers`` is ``main_path_gathers``' result:
     each batch must fetch the spans it planned, in one gather launch per
     round (span read), so phase 4 timed the launches made here.
-    Returns the gather launches of the path, the scan batch's stats (its
-    recall@k under ``recall_at_k``) and each search mode's first batch
-    with the gather on (d, g, stats)."""
-    launches = 0
+    On the card a graph batch walks each round in one ``beam_walk``
+    launch, a scan batch in none.  Returns the gather and walk launches
+    of the path, the scan batch's stats (its recall@k under
+    ``recall_at_k``) and each search mode's first batch with the gather
+    on (d, g, stats)."""
+    launches = walks = 0
     batches = {}
     round_ids, n_fetches = gathers
     B, n = ds.queries.shape[0], ds.data.shape[0]
@@ -1639,6 +1888,13 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
                 f"exact {search_mode}: {n_launch} gather launches and "
                 f"{st['n_fetches']} fetches, planned {want} and {n_fetches}")
         launches += n_launch
+        want = (st["n_rounds"] if device.type == "cuda"
+                and search_mode == "graph" else 0)
+        if n_on["beam_walk"] != want or n_off["beam_walk"] != want:
+            raise AssertionError(
+                f"exact {search_mode}: {n_on['beam_walk']} and "
+                f"{n_off['beam_walk']} walk launches, {want} rounds")
+        walks += n_on["beam_walk"]
         _check_output(d, g, B, k, n, f"exact {search_mode}")
         if not (np.array_equal(g, g0) and np.array_equal(d, d0)):
             raise AssertionError(f"exact {search_mode}: gather kernel on/off "
@@ -1649,10 +1905,48 @@ def phase_exact(ds, meta, store, device, *, k: int, doorbell: int,
         log(f"[5 exact {search_mode}] recall@{k}={rec:.4f} | {_counted(st)}"
             f" | gather launches {n_launch} | wall s gather on "
             f"{[w[0] for w in on['walls']]}, off "
-            f"{[w[0] for w in off['walls']]} (off, on, on, off) | host "
-            f"split (on, first run): {_host_split(st)} | equal to gather off")
+            f"{[w[0] for w in off['walls']]} (off, on, on, off) | walk "
+            f"launches {n_on['beam_walk']} | host split (on, first run): "
+            f"{_host_split(st)} | equal to gather off")
     st["recall_at_k"] = rec          # the scan batch's, phase 10's floor
-    return {"gather_blocks": launches}, st, batches
+    return {"gather_blocks": launches, "beam_walk": walks}, st, batches
+
+
+def phase_walk(ds, meta, store, device, *, k: int, doorbell: int,
+               graph_batch) -> list:
+    """Phase 5w: phase 5's exact graph batch once more, on a fresh engine
+    with the gather on, with every round's ``beam_walk`` launch held
+    against the plain loop on its own inputs (``WalkCheck``): ids equal
+    up to ties, distances within rtol 1e-5, every lane's steps equal, and
+    the launch and the plain loop timed.  The batch's gids and counted
+    stats must equal phase 5's (``graph_batch``: d, g, stats).  Returns
+    the rounds for phase 4 (none off the card: there the walk is the
+    plain loop and launches nothing)."""
+    if device.type != "cuda":
+        return []
+    t0 = time.perf_counter()
+    eng = DHNSWEngine(exact_config(meta.n_partitions, doorbell, "graph"),
+                      device=device).adopt_built(
+        meta, dataclasses.replace(store), ds.data)
+    with WalkCheck() as check:
+        d, g, st, _, n = _search(eng, ds.queries, k, device)
+    d5, g5, st5 = graph_batch
+    if not (np.array_equal(g, g5) and np.array_equal(d, d5)
+            and _counted_equal(st, st5)):
+        raise AssertionError("5w: the checked graph batch differs from "
+                             "phase 5's")
+    if n["beam_walk"] != st["n_rounds"] or len(check.rounds) != n[
+            "beam_walk"]:
+        raise AssertionError(f"5w: {n['beam_walk']} walk launches, "
+                             f"{len(check.rounds)} checked, "
+                             f"{st['n_rounds']} rounds")
+    parted = sum(len(r["partings"]) for r in check.rounds)
+    log(f"[5w walk] exact graph batch of {len(ds.queries)}: every one of "
+        f"its {len(check.rounds)} walk launches equal to the plain loop "
+        f"up to ties, every lane's steps equal but in {parted} lanes "
+        f"whose walks part at a tie | "
+        f"{time.perf_counter() - t0:.1f} s with the checks")
+    return check.rounds
 
 
 def phase_int8(ds, meta, qstore, device, *, k: int, doorbell: int,
@@ -5924,7 +6218,8 @@ def phase_paper_headline(ds, meta, store, device, log_: PathLog, *,
 
 def phase_paper(ds, meta, store, device, *, graph_batch, quick=None,
                 full=None, reference=None,
-                recall_floor: float = RECALL_FLOOR) -> tuple:
+                recall_floor: float = RECALL_FLOOR,
+                walk_check=None) -> tuple:
     """Phase 18: the paper's evaluation through the port's twins.  (a)
     the ``quick`` preset (``quick``; sift 20k, gist 4k, batch 256): Fig.
     6, Tables 1-2 and insert, every counted field equal to ``reference``
@@ -5934,8 +6229,10 @@ def phase_paper(ds, meta, store, device, *, graph_batch, quick=None,
     host build, timed), ``_paper_checks``, recall@10 at ef 48 on sift of
     at least ``recall_floor``, each dataset's peak device memory; (c) the
     headline run.  Every search gathers through ``gather_spans``; the
-    calls are recorded for phase 4.  Returns (launches, the recorded
-    gather launches as ``gather_launches`` entries, their buffers)."""
+    calls are recorded for phase 4.  ``walk_check`` (a ``WalkCheck``) is
+    active over (b), for phase 4's walk rounds.  Returns (launches, the
+    recorded gather launches as ``gather_launches`` entries, their
+    buffers)."""
     t18 = time.perf_counter()
     quick = torch_common.PRESETS["quick"] if quick is None else quick
     full = torch_common.PRESETS["full"] if full is None else full
@@ -5957,7 +6254,8 @@ def phase_paper(ds, meta, store, device, *, graph_batch, quick=None,
 
     torch_common.clear()
     torch_common.adopt_index("sift", ds, meta, store, preset=full)
-    rows, seen = _paper_datasets(full, device, logs, "18b", "full")
+    with walk_check or contextlib.nullcontext():
+        rows, seen = _paper_datasets(full, device, logs, "18b", "full")
     _paper_checks(seen, full, device, "18b")
     rec = seen["fig6/sift@top10/full/ef48"]
     got = next(r["recall"] for r in rows
@@ -6001,6 +6299,9 @@ def main(argv=None) -> int:
     launches, scan_stats, exact_batches = phase_exact(
         ds, meta, store, device, k=FULL["k"], doorbell=FULL["doorbell"],
         gathers=gathers, recall_floor=RECALL_FLOOR)
+    sift_walks = phase_walk(ds, meta, store, device, k=FULL["k"],
+                            doorbell=FULL["doorbell"],
+                            graph_batch=exact_batches["graph"])
     launches.update(phase_int8(ds, meta, qstore, device, k=FULL["k"],
                                doorbell=FULL["doorbell"],
                                recall_floor=RECALL_FLOOR))
@@ -6039,8 +6340,10 @@ def main(argv=None) -> int:
     launches["decode_attention"] += phase_mesh(
         device, dev_info["smi"], step_17a=train["step_s"])
     launches["decode_attention"] += phase_examples(device, dev_info["smi"])
+    gist_walks = WalkCheck(want=lambda v: v.shape[2] == 960, limit=2)
     paper_launches, paper_recorded, paper_bufs = phase_paper(
-        ds, meta, store, device, graph_batch=exact_batches["graph"])
+        ds, meta, store, device, graph_batch=exact_batches["graph"],
+        walk_check=gist_walks)
     ins_launches, ins_recorded, ins_bufs = phase_insert(
         ds, meta, store, qstore, device, k=FULL["k"],
         doorbell=FULL["doorbell"], scan_recall=scan_stats["recall_at_k"])
@@ -6097,7 +6400,10 @@ def main(argv=None) -> int:
                             extra_bufs={**ins_bufs, **load_bufs,
                                         **pool_bufs, **paper_bufs},
                             gather_parts=[("18b gist (960-d rows)",
-                                           "paper.full.gist.")])
+                                           "paper.full.gist.")],
+                            walks=[("5w sift exact graph", sift_walks),
+                                   ("18b gist (960-d rows)",
+                                    gist_walks.rounds)])
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] <= 0:

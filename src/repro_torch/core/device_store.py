@@ -21,6 +21,10 @@ place (the reference returns new arrays and donates the old ones).
 With the tracer on, a serve round's work is split into spans: one
 ``compute.serve.decode`` and one ``compute.serve.walk`` (the per-pair
 walk or scan) a pair chunk, and one ``compute.serve.merge`` a call.
+
+The graph paths walk each lane's sub-HNSW through ``kernels/beam_walk``:
+one kernel launch a pair chunk on the card, the plain loop of
+``search.batched_beam_search`` on the CPU.
 """
 from __future__ import annotations
 
@@ -111,12 +115,20 @@ def search_decoded_scan(part: DecodedPartition, q, k: int):
     return nd, part.gids.gather(1, ni)
 
 
+def _walk(part: DecodedPartition, q, ef: int):
+    """Each lane's beam walk over its base graph (``kernels/beam_walk``,
+    imported here: a memory node imports this module and no kernel)."""
+    from repro_torch.kernels.beam_walk.ops import beam_walk
+    np_max = part.adjacency.shape[2]
+    return beam_walk(part.vectors[:, :np_max], part.adjacency[:, 0], q,
+                     part.entry, ef=ef)
+
+
 def search_decoded_graph(part: DecodedPartition, q, k: int, ef: int):
     """Paper-faithful: beam-search each lane's sub-HNSW over its base
     vectors, brute-scan the live overflow slice, and merge."""
     np_max = part.adjacency.shape[2]
-    bd, bi = S.batched_beam_search(part.vectors[:, :np_max], part.adjacency,
-                                   q, part.entry, ef=max(ef, k), n_levels=1)
+    bd, bi = _walk(part, q, max(ef, k))
     safe = bi.clamp(0, part.valid.shape[1] - 1)    # JAX clamps the gather
     bd = torch.where((bi >= 0) & part.valid.gather(1, safe), bd, S.INF)
     base_d = bd[:, :k]
@@ -257,8 +269,7 @@ def search_decoded_graph_local(part: DecodedPartition, q, k: int, ef: int):
     each lane's beam walk over its base graph + a brute scan of its live
     overflow slice."""
     np_max = part.adjacency.shape[2]
-    bd, bi = S.batched_beam_search(part.vectors[:, :np_max], part.adjacency,
-                                   q, part.entry, ef=max(ef, k), n_levels=1)
+    bd, bi = _walk(part, q, max(ef, k))
     bd = torch.where((bi >= 0) & part.valid.gather(
         1, bi.clamp(0, part.valid.shape[1] - 1)), bd, S.INF)
     ov_d = (part.vectors[:, np_max:] - q[:, None, :]).square().sum(-1)

@@ -57,6 +57,10 @@ SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                 _P],
+    # vectors, v_lane, v_row, adjacency, a_lane, a_row, queries, q_row,
+    # entry, out_d, out_i, steps, lanes, n, D, deg, ef, max_iters, stream
+    "beam_walk_launch": [_P, _L, _L, _P, _L, _L, _P, _L, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -148,7 +152,13 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, name: str) -> None:
-    """Raise when a launcher returned a CUDA error code."""
+    """Raise when a launcher returned a CUDA error code.  A launcher
+    returns ``cudaErrorInvalidValue`` (1), launching nothing, for a shape
+    outside the limits its source checks."""
+    if err == 1:
+        raise RuntimeError(f"{name}: the launcher refused the shape "
+                           "(cudaErrorInvalidValue): outside the limits its "
+                           "source checks")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

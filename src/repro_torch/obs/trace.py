@@ -54,7 +54,10 @@ synchronize) and counts it as ``host_syncs`` / ``sync_wait_s`` (and per
 site, ``host_syncs.<site>`` / ``sync_wait_s.<site>``).  When a span
 closes its counters land in its ``attrs`` and are added to the enclosing
 span's, so a root span holds the totals of its whole tree.  With no open
-span a count is dropped.
+span a count is dropped.  :meth:`Tracer.count_later` defers a count
+that the device computes (a host tensor a copy fills behind the device's
+work); it rolls up with the spans and :meth:`Tracer.settle` adds it once
+the host has waited for the device anyway.
 
 Device time and the clock
 -------------------------
@@ -110,7 +113,7 @@ class _Span:
     """Live span context manager; records itself into the tracer on exit."""
 
     __slots__ = ("_tracer", "name", "tier", "attrs", "t0", "span_id",
-                 "parent_id", "counts", "outer")
+                 "parent_id", "counts", "later", "outer")
 
     def __init__(self, tracer: "Tracer", name: str, tier: str, attrs: Dict[str, Any]):
         """Bind the span to *tracer*; nothing is recorded until ``__exit__``."""
@@ -122,6 +125,7 @@ class _Span:
         self.span_id = 0
         self.parent_id = 0
         self.counts: Dict[str, float] = {}
+        self.later: List[tuple] = []
         self.outer: Optional["_Span"] = None
 
     def __enter__(self) -> "_Span":
@@ -151,6 +155,8 @@ class _Span:
             self.attrs.update(self.counts)
             if self.outer is not None:
                 _add_counts(self.outer.counts, self.counts)
+        if self.later and self.outer is not None:
+            self.outer.later.extend(self.later)
         tr._record(self.name, self.tier, self.t0, dur, self.span_id, self.parent_id, self.attrs)
         return False
 
@@ -341,6 +347,30 @@ class Tracer:
         sp = getattr(self._tls, "open", None)
         if sp is not None:
             sp.counts[key] = sp.counts.get(key, 0) + n
+
+    def count_later(self, key: str, value: Any) -> None:
+        """Add ``value`` to counter ``key`` of the innermost open span once
+        the device has filled it: ``value`` is a one-element host tensor
+        that a copy behind the device's work fills without the host
+        waiting.  It rolls up with the span's counters, not into its
+        ``attrs``, until ``settle``; a no-op when disabled."""
+        if not self.enabled:
+            return
+        sp = getattr(self._tls, "open", None)
+        if sp is not None:
+            sp.later.append((key, value))
+
+    def settle(self) -> None:
+        """Add the deferred counts (``count_later``) that reached the
+        innermost open span to its counters.  Call it only where the host
+        has already waited for the device past their copies, as after a
+        readback: it reads host memory and waits for nothing."""
+        sp = getattr(self._tls, "open", None)
+        if sp is None:
+            return
+        for key, value in sp.later:
+            sp.counts[key] = sp.counts.get(key, 0) + value.numpy().item()
+        sp.later.clear()
 
     def wait(self, site: str) -> Any:
         """A context around a point where the host waits for the device

@@ -17,8 +17,9 @@ CPU); every other int8 configuration runs the per-pair stage 1 over the
 quantized tier's device slots (``_stage1_pairs``).
 
 With the tracer on, a search is one ``compute.search`` span whose
-counters (``walk_steps``, ``route_steps``, ``host_syncs``,
-``sync_wait_s`` and their per-site parts) are copied into its ``stats``;
+counters (``walk_steps``, ``walk_launches``, ``route_steps``,
+``host_syncs``, ``sync_wait_s`` and their per-site parts) are copied into
+its ``stats``, the walk kernel's deferred step counts settled first;
 every point where the host waits for the card (an upload from host
 memory through ``_t``, a readback, a synchronize) is wrapped in
 ``TRACER.wait``.
@@ -205,6 +206,7 @@ class ComputeClient:
             else:
                 out = self._search_exact(queries, k, ef, b)
             if sp.span_id:               # a live span, not the no-op
+                TRACER.settle()          # the readbacks have waited
                 out[2].update(sp.counts)
             return out
 

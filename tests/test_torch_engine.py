@@ -292,7 +292,10 @@ def test_chip_smoke_phases_on_cpu(chip_smoke):
                              scan_stats=scan_stats)
     pairs = cs.phase_int8_pairs(ds, meta, qstore, cpu, k=10, doorbell=16,
                                 gathers=pair_gathers, n_batches=4)
-    assert exact == {"gather_blocks": 0} and q8 == {"quant_topk": 0}
+    assert exact == {"gather_blocks": 0, "beam_walk": 0}
+    assert q8 == {"quant_topk": 0}
+    assert cs.phase_walk(ds, meta, store, cpu, k=10, doorbell=16,
+                         graph_batch=batches["graph"]) == []
     assert tp == {"distance_topk": 0} and pairs == {"gather_blocks": 0}
     # phase 9 at the smoke width of qwen3-8b, with the full path's shape
     # of a request (S = 4 * 240 + 64 = 1024: prefill through flash)
